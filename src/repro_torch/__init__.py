@@ -1,0 +1,7 @@
+"""PyTorch + CUDA port of the Helios reproduction (see ``src/repro`` for the
+JAX reference it is held against).
+
+This package imports ``torch`` and ``numpy`` only.  Its layout mirrors the
+JAX package module for module; the masked dense layers run on hand-written
+CUDA kernels for Hopper (``kernels/csrc``), built with ``nvcc`` at first use.
+"""

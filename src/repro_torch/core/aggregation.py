@@ -1,0 +1,83 @@
+# repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
+"""Heterogeneous model aggregation (Section VI.B, Eq. 10) + variants.
+
+* ``alpha_weighted`` (paper): client n is weighted alpha_n = r_n / sum(r_m),
+  r_n = its selected-neuron ratio.
+* ``masked_mean``: per-COORDINATE weighted mean over the clients that
+  trained each coordinate; coordinates nobody trained keep the global value.
+* ``uniform``: plain FedAvg (the Syn. FL baseline).
+
+Parameters are flat dicts of tensors; sums run in float32 in client order.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import torch
+
+Params = Dict[str, torch.Tensor]
+
+
+def alpha_weights(ratios: Sequence, device=None) -> torch.Tensor:
+    r = torch.stack([torch.as_tensor(x, dtype=torch.float32, device=device)
+                     for x in ratios])
+    return r / torch.clamp(r.sum(), min=1e-9)
+
+
+def _device(params: Params):
+    return next(iter(params.values())).device
+
+
+def aggregate_alpha(global_params: Params, client_params: Sequence[Params],
+                    ratios: Sequence) -> Params:
+    """Eq. 10: theta = sum_n alpha_n theta_n."""
+    a = alpha_weights(ratios, _device(global_params))
+    out = {}
+    for k, g in global_params.items():
+        acc = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+        for i, cp in enumerate(client_params):
+            acc = acc + a[i] * cp[k].float()
+        out[k] = acc.to(g.dtype)
+    return out
+
+
+def aggregate_masked_mean(global_params: Params,
+                          client_params: Sequence[Params],
+                          client_masks: Sequence[Params],
+                          ratios: Optional[Sequence] = None) -> Params:
+    """Per-coordinate mean over the clients whose mask covers the coordinate,
+    alpha-weighted within the covered set when ``ratios`` is given."""
+    n = len(client_params)
+    dev = _device(global_params)
+    a = alpha_weights(ratios, dev) if ratios is not None else \
+        torch.full((n,), 1.0 / n, dtype=torch.float32, device=dev)
+    out = {}
+    for k, g in global_params.items():
+        num = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+        den = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+        for i in range(n):
+            m = client_masks[i][k]
+            num = num + a[i] * m * client_params[i][k].float()
+            den = den + a[i] * m
+        out[k] = torch.where(den > 0, num / torch.clamp(den, min=1e-9),
+                             g.float()).to(g.dtype)
+    return out
+
+
+def aggregate_uniform(global_params: Params,
+                      client_params: Sequence[Params]) -> Params:
+    return aggregate_alpha(global_params, client_params,
+                           [1.0] * len(client_params))
+
+
+def aggregate(cfg_mode: str, global_params: Params,
+              client_params: Sequence[Params], ratios=None,
+              client_masks=None) -> Params:
+    if cfg_mode == "alpha_weighted":
+        return aggregate_alpha(global_params, client_params, ratios)
+    if cfg_mode == "masked_mean":
+        return aggregate_masked_mean(global_params, client_params,
+                                     client_masks, ratios)
+    if cfg_mode == "uniform":
+        return aggregate_uniform(global_params, client_params)
+    raise ValueError(cfg_mode)

@@ -1,0 +1,283 @@
+# repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
+"""The sequential federated round engine (``FLRun.run_sync``).
+
+The algorithm lives behind :mod:`repro_torch.federated.schemes`; this module
+owns execution.  Time is simulated (``heterogeneity.cycle_time``); the
+metric is real: models train on real tensors on the run's device.  One
+round: §IV.C pace -> simulated times -> each client's cycle (Eq. 2 masks,
+masked local SGD, Eq. 1 scores) -> aggregation (Eq. 10) -> volume
+adaptation -> history.  The loop never waits for the device except in
+``evaluate`` and the history row behind the eval gate.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import HeliosConfig, ModelConfig
+from repro_torch.core import aggregation as AG
+from repro_torch.core import masking as MK
+from repro_torch.core import soft_train as ST
+from repro_torch.core import volume as VOL
+from repro_torch.core.identification import (DeviceProfile,
+                                             identify_resource_based,
+                                             identify_time_based)
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.federated.adapter import CNNAdapter
+from repro_torch.federated.heterogeneity import cycle_time
+from repro_torch.federated.schemes import Scheme, make_scheme
+from repro_torch.kernels.ops import canonical_impl
+from repro_torch.models import init_params as _init_params
+from repro_torch.obs.recorder import Recorder
+from repro_torch.optim import apply_updates, make_optimizer
+
+
+def _make_local_train(adapter: CNNAdapter, opt):
+    """E masked local SGD steps (a Python loop over the leading
+    ``local_steps`` axis of ``batches``); the optimizer state restarts each
+    cycle.  Returns (new params, mean loss as a device scalar)."""
+
+    def local_train(params, batches, masks):
+        opt_state = opt.init(params)
+        losses = []
+        for i in range(next(iter(batches.values())).shape[0]):
+            batch = {k: v[i] for k, v in batches.items()}
+            leaves = {k: p.detach().requires_grad_(True)
+                      for k, p in params.items()}
+            loss = adapter.loss_fn(leaves, batch, masks)
+            grads = dict(zip(leaves, torch.autograd.grad(
+                loss, list(leaves.values()))))
+            updates, opt_state = opt.update(grads, opt_state, params, 0)
+            params = apply_updates(params, updates)
+            losses.append(loss.detach())
+        return params, torch.stack(losses).mean()
+
+    return local_train
+
+
+def _median_pace(capable_times: Sequence[float]) -> float:
+    """Median capable-device cycle time, 1.0 for an all-straggler cohort."""
+    return float(np.median(capable_times)) if capable_times else 1.0
+
+
+def _collab_pace(clients: Sequence["Client"]) -> float:
+    """§IV.C collaboration pace over a client list."""
+    return _median_pace([cycle_time(c.profile, 1.0) for c in clients
+                         if not c.is_straggler])
+
+
+@dataclasses.dataclass
+class Client:
+    cid: int
+    profile: DeviceProfile
+    data_idx: np.ndarray
+    volume: float = 1.0
+    helios_state: Optional[dict] = None
+    is_straggler: bool = False
+
+
+@dataclasses.dataclass
+class FLRun:
+    """One sequential engine run: the global params + per-client state."""
+
+    cfg: ModelConfig
+    hcfg: HeliosConfig
+    scheme: str
+    clients: List[Client]
+    train_data: Dict[str, np.ndarray]
+    test_data: Dict[str, np.ndarray]
+    batch_size: int = 32
+    local_steps: int = 5
+    lr: float = 0.05
+    seed: int = 0
+    eval_batch: int = 512              # eval CHUNK size (full set is scored)
+    #: soft-training substrate: "reference" (plain masked ops) or "cuda"
+    #: (block-sparse masked-matmul kernels; "pallas" is an alias)
+    kernels: str = "reference"
+    #: kernel skip granularity; 0 follows HeliosConfig.mask_block (128 when
+    #: that is 0 too), so selection blocks and kernel blocks agree
+    mask_block: int = 0
+    #: "cuda" unless "cpu" is asked for; no GPU and no CPU request raises
+    device: DeviceLike = None
+    #: initial global params (tensors or numpy arrays keyed like the spec);
+    #: None draws them from ``seed``
+    init_params: Optional[Mapping] = None
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self._scheme: Scheme = make_scheme(self.scheme)
+        self.kernels = canonical_impl(self.kernels)
+        self.mask_block = self.mask_block or self.hcfg.mask_block or 128
+        self.adapter = CNNAdapter(self.cfg, self.kernels, self.mask_block,
+                                  self.device)
+        if self.init_params is None:
+            self.global_params = _init_params(self.cfg, self.seed, self.device)
+        else:
+            self.global_params = {
+                k: (v.detach() if torch.is_tensor(v) else
+                    torch.tensor(np.array(v))).to(self.device, copy=True)
+                for k, v in self.init_params.items()}
+        self.opt = make_optimizer("momentum", self.lr)
+        self.rng = np.random.default_rng(self.seed)
+        self.history: List[dict] = []
+        self._n_params = sum(p.numel() for p in self.global_params.values())
+        self.rec = Recorder()
+        for c in self.clients:
+            c.helios_state = ST.init_state(self.adapter.schema,
+                                           volume=c.volume, seed=c.cid,
+                                           device=self.device)
+        self._local_train = _make_local_train(self.adapter, self.opt)
+
+    # -- accounting ------------------------------------------------------
+    def downlink_bytes(self) -> float:
+        """Simulated server->client bytes: every participant pulls the dense
+        f32 global."""
+        return float(self.downlink_updates) * self._n_params * 4.0
+
+    @property
+    def downlink_updates(self) -> int:
+        return self.rec.count("downlink_updates")
+
+    # -- one client's cycle ------------------------------------------------
+    def _client_masks(self, client: Client) -> dict:
+        if self._scheme.soft_training and client.is_straggler:
+            return client.helios_state["masks"]
+        return ST.full_masks(self.adapter.schema, self.device)
+
+    def _client_cycle(self, client: Client, base_params):
+        """One local training cycle; returns (new_params, masks, ratio, loss)."""
+        sch = self._scheme
+        soft = sch.soft_training and client.is_straggler
+        hcfg = sch.effective_hcfg(self.hcfg)
+        if soft:
+            client.helios_state = ST.begin_cycle(client.helios_state, hcfg)
+        masks = self._client_masks(client)
+        batches = self.adapter.sample_batch(
+            self.rng, self.train_data, client.data_idx, self.local_steps,
+            self.batch_size)
+        new_params, loss = self._local_train(base_params, batches, masks)
+        if soft:
+            if sch.use_delta_scores:
+                scores = self.adapter.cycle_scores(new_params, base_params)
+            else:                                          # random [12]
+                scores = client.helios_state["scores"]
+            client.helios_state = ST.end_cycle(client.helios_state, scores,
+                                               hcfg)
+        # a device scalar: converted behind the eval gate (_record_round)
+        ratio = MK.selected_fraction(masks)
+        return new_params, masks, ratio, loss
+
+    def _aggregate(self, results) -> None:
+        """results: list of (params, masks, ratio, loss)."""
+        params = [r[0] for r in results]
+        ratios = [r[2] for r in results]
+        mode = self._scheme.agg_mode(self.hcfg)
+        masks = None
+        if mode == "masked_mean":
+            masks = [self.adapter.expand_masks(r[1], self.global_params)
+                     for r in results]
+        self.global_params = AG.aggregate(mode, self.global_params, params,
+                                          ratios=ratios, client_masks=masks)
+
+    def evaluate(self) -> float:
+        """Full-test-set accuracy in chunks of ``eval_batch`` (the one place
+        the loop waits for the device)."""
+        n = self.adapter.num_examples(self.test_data)
+        total = weight = 0.0
+        for lo in range(0, n, self.eval_batch):
+            chunk = self.adapter.eval_slice(self.test_data, lo,
+                                            min(lo + self.eval_batch, n))
+            s, w = self.adapter.eval_chunk(self.global_params, chunk)
+            total += float(s)
+            weight += float(w)
+        return total / max(weight, 1e-9)
+
+    # -- the sync round ----------------------------------------------------
+    def _round_times(self, clients: Sequence[Client]) -> List[float]:
+        """Simulated wall time per client for one round, billed at the
+        scheme's effective volume."""
+        return [cycle_time(c.profile, self._scheme.effective_volume(c))
+                for c in clients]
+
+    def _train_cohort(self, cclients: List[Client]):
+        """Train every client against the current global params (consuming
+        ``self.rng`` in client order) and aggregate; returns per-client
+        (losses, ratios)."""
+        results = [self._client_cycle(c, self.global_params)
+                   for c in cclients]
+        self._aggregate(results)
+        return [r[3] for r in results], [r[2] for r in results]
+
+    def _adapt_volumes(self, cclients: List[Client], times: List[float],
+                       pace: float) -> None:
+        """Move straggler volumes toward the collaboration pace (§IV.C)."""
+        if not (self._scheme.adapt_volume and self.hcfg.adapt_volume):
+            return
+        for c, t in zip(cclients, times):
+            if c.is_straggler:
+                c.volume = VOL.adapt_volume(c.volume, t, pace,
+                                            self.hcfg.adapt_gain,
+                                            self.hcfg.min_volume)
+                c.helios_state = ST.set_volume(c.helios_state, c.volume)
+
+    def _record_round(self, r: int, rounds: int, eval_every: int,
+                      clock: float, losses, ratios) -> None:
+        """History row (eval_every=0 disables evaluation/history); converts
+        the per-client device scalars to host floats here."""
+        if eval_every > 0 and (r % eval_every == 0 or r == rounds - 1):
+            self.history.append({
+                "scheme": self.scheme, "cycle": r + 1, "time": clock,
+                "record_cadence": "round",
+                self.adapter.metric_name: self.evaluate(),
+                "loss": float(torch.stack(losses).mean()),
+                "ratios": [float(x) for x in torch.stack(ratios).cpu()],
+                "volumes": [c.volume for c in self.clients],
+                "downlink_mb": self.downlink_bytes() / 1e6})
+
+    def run_sync(self, rounds: int, eval_every: int = 1) -> List[dict]:
+        """``rounds`` synchronous rounds over the whole fleet."""
+        clock = 0.0
+        for r in range(rounds):
+            cclients = list(self.clients)
+            pace = _collab_pace(cclients)
+            times = self._round_times(cclients)
+            self.rec.inc("downlink_updates", len(cclients))  # global broadcast
+            losses, ratios = self._train_cohort(cclients)
+            self._adapt_volumes(cclients, times, pace)
+            clock += self._scheme.round_duration(times, cclients)
+            self._record_round(r, rounds, eval_every, clock, losses, ratios)
+        return self.history
+
+
+def setup_clients(profiles: Sequence[DeviceProfile],
+                  parts: Sequence[np.ndarray],
+                  hcfg: HeliosConfig,
+                  identification: str = "resource",
+                  device: DeviceLike = None) -> List[Client]:
+    """Straggler identification (§IV.B) + volume targets (§IV.C).
+
+    ``device`` is checked here (``cuda`` unless ``cpu`` is asked for), so a
+    fleet meant for a GPU that is not there fails before any run starts.
+    """
+    resolve_device(device)
+    n = len(profiles)
+    sim_times = [cycle_time(p, 1.0) for p in profiles]
+    if identification == "resource":
+        _, stragglers = identify_resource_based(
+            workload_gflop=100.0, memory_mb=200.0, devices=list(profiles))
+    else:
+        _, stragglers = identify_time_based(lambda d: None, n,
+                                            simulated_times=sim_times)
+    pace = _median_pace([t for i, t in enumerate(sim_times)
+                         if i not in stragglers])
+    clients = []
+    for i, p in enumerate(profiles):
+        is_s = i in stragglers
+        vol = VOL.volume_from_profile(sim_times[i], pace, hcfg.min_volume) \
+            if is_s else 1.0
+        clients.append(Client(cid=i, profile=p, data_idx=parts[i],
+                              volume=vol, is_straggler=is_s))
+    return clients

@@ -1,0 +1,202 @@
+# repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
+"""Differentiable wrappers of the masked-matmul kernels: the execution seam
+of kernel-backed soft-training.
+
+The model layers call :func:`masked_dense` / :func:`masked_contract` with
+``impl="reference" | "cuda"`` (``"pallas"`` is an alias of ``"cuda"``, so
+JAX configs carry over) and get the same numbers either way:
+
+* the kernel path multiplies its output by the unit mask, so it is exact
+  for ANY 0/1 mask, not only block-constant ones, while dead blocks are
+  also skipped on the card;
+* its ``torch.autograd.Function`` backward skips dead blocks too: dx by the
+  contraction-skipping kernel over dy·mask, dw by the column-skipping
+  kernel, with EXACTLY-zero gradients for masked-out columns (Helios
+  frozen-neuron semantics) and no gradient for the mask.
+
+On a CPU tensor the kernel wrappers compute their plain versions, so the
+same autograd structure runs in the CPU tests.  The kernels mask ragged
+edges themselves: no operand is padded here.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.utils.weak import WeakIdKeyDictionary
+
+from repro_torch.kernels import masked_matmul as K
+
+#: canonical values of the ``kernels`` / ``impl`` knobs
+CUDA = "cuda"
+REFERENCE = "reference"
+_ALIASES = {"pallas": CUDA, CUDA: CUDA, REFERENCE: REFERENCE}
+
+
+def canonical_impl(impl: str) -> str:
+    """``"pallas"`` -> ``"cuda"``; anything unknown raises."""
+    try:
+        return _ALIASES[impl]
+    except KeyError:
+        raise ValueError(f"kernels/impl must be one of {sorted(_ALIASES)}, "
+                         f"got {impl!r}") from None
+
+
+# ---------------------------------------------------------------------------
+# block-aligned masks
+# ---------------------------------------------------------------------------
+
+
+def _pad_last(x: torch.Tensor, mult: int) -> torch.Tensor:
+    pad = (-x.shape[-1]) % mult
+    return F.pad(x, (0, pad)) if pad else x
+
+
+def block_align_mask(unit_mask: torch.Tensor, block_n: int) -> torch.Tensor:
+    """Round a unit mask UP to block granularity: idempotent, a superset of
+    the input, and block-constant (every block of the padded mask is all-0
+    or all-1)."""
+    n = unit_mask.shape[-1]
+    m = _pad_last(unit_mask, block_n)
+    blocks = m.reshape(m.shape[:-1] + (-1, block_n)).amax(dim=-1)
+    return blocks.repeat_interleave(block_n, dim=-1)[..., :n]
+
+
+def _block_alive(unit_mask: torch.Tensor, block_n: int) -> torch.Tensor:
+    """(N,) 0/1 mask -> (ceil(N/bn),) per-block flags (a block with ANY live
+    unit runs; padding columns are dead)."""
+    return _pad_last(unit_mask, block_n).reshape(-1, block_n).amax(dim=1)
+
+
+#: unit mask -> (version, block, live list); a mask tensor lives for a whole
+#: local-training cycle, so its live list is built (and, on the card, waited
+#: for) once per cycle instead of once per launch
+_LIVE = WeakIdKeyDictionary()
+
+
+def _live(unit_mask: torch.Tensor, block: int) -> torch.Tensor:
+    hit = _LIVE.get(unit_mask)
+    if hit is not None and hit[0] == unit_mask._version and hit[1] == block:
+        return hit[2]
+    live = K.live_blocks(_block_alive(unit_mask, block))
+    _LIVE[unit_mask] = (unit_mask._version, block, live)
+    return live
+
+
+# ---------------------------------------------------------------------------
+# masked dense layer (column-block skip) and masked contraction
+# ---------------------------------------------------------------------------
+
+
+def _mm(x, w, unit_mask, live, block_n):
+    """Column-skipping kernel, exact ``x @ (w·mask)``: the multiply by the
+    unit mask restores exactness for masks that are not block-constant and
+    pins dead columns to zero."""
+    y = K.masked_matmul(x, w, live, block_n)
+    return y * unit_mask.to(y.dtype)[None, :]
+
+
+class _MaskedDense(torch.autograd.Function):
+    """``y = x @ (w · mask)`` at one mask-block granularity.
+
+    Backward: dx = (dy·mask) @ wᵀ with dead N-blocks skipped in the
+    contraction; dw = xᵀ @ (dy·mask) with dead column blocks skipped and
+    masked columns exactly zero; no gradient for the mask.
+    """
+
+    @staticmethod
+    def forward(ctx, x, w, unit_mask, block_n):
+        live = _live(unit_mask, block_n)
+        ctx.save_for_backward(x, w, unit_mask)
+        ctx.live, ctx.block_n = live, block_n
+        return _mm(x, w, unit_mask, live, block_n)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, unit_mask = ctx.saved_tensors
+        live, bn = ctx.live, ctx.block_n
+        dym = dy * unit_mask.to(dy.dtype)[None, :]
+        dx = K.masked_matmul_dk(dym, w.t(), live, bn)
+        dw = _mm(x.t(), dym, unit_mask, live, bn)
+        return dx, dw, None, None
+
+
+class _MaskedContract(torch.autograd.Function):
+    """``y = h @ w`` where the CONTRACTION dim is unit-masked (exact when the
+    masked columns of ``h`` are zero, as they are after :func:`masked_dense`).
+
+    Backward: dh = dy @ wᵀ with masked columns zeroed; dw = hᵀ @ dy with
+    dead row blocks skipped and masked rows exactly zero (computed as dwᵀ
+    by the column-skipping kernel).
+    """
+
+    @staticmethod
+    def forward(ctx, h, w, unit_mask, block_n):
+        live = _live(unit_mask, block_n)
+        ctx.save_for_backward(h, w, unit_mask)
+        ctx.live, ctx.block_n = live, block_n
+        return K.masked_matmul_dk(h * unit_mask.to(h.dtype)[None, :], w, live,
+                                  block_n)
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, w, unit_mask = ctx.saved_tensors
+        live, bn = ctx.live, ctx.block_n
+        dy = dy.contiguous()          # a broadcast cotangent has zero strides
+        dh = _mm(dy, w.t(), unit_mask, live, bn)
+        dw = _mm(dy.t(), h, unit_mask, live, bn).t()
+        return dh, dw, None, None
+
+
+def _collapse(x: torch.Tensor) -> Tuple[torch.Tensor, tuple]:
+    """(..., K) -> (M, K) plus the leading dims to restore."""
+    return x.reshape(-1, x.shape[-1]), x.shape[:-1]
+
+
+def masked_dense(x: torch.Tensor, w: torch.Tensor, unit_mask: torch.Tensor,
+                 *, impl: str = REFERENCE, block_n: int = 128) -> torch.Tensor:
+    """Soft-training dense layer: ``y = x @ (w · unit_mask[None, :])``.
+
+    x: (..., K); w: (K, N); unit_mask: (N,) float 0/1.  ``impl="cuda"``
+    runs the block-sparse kernel pair (forward and backward skip dead
+    column blocks); ``"reference"`` is the plain semantics the kernels are
+    held to.  Masked columns of y, and of every gradient, are exactly 0.
+    """
+    if w.dim() != 2 or x.shape[-1] != w.shape[0]:
+        raise ValueError(f"masked_dense: x (..., K={x.shape[-1]}) does not "
+                         f"contract with w {tuple(w.shape)} (want (K, N))")
+    if tuple(unit_mask.shape) != (w.shape[1],):
+        raise ValueError(f"masked_dense: unit_mask {tuple(unit_mask.shape)} "
+                         f"must be (N,) = ({w.shape[1]},)")
+    if canonical_impl(impl) == REFERENCE:
+        return x @ (w * unit_mask.to(w.dtype)[None, :])
+    x2, lead = _collapse(x)
+    y = _MaskedDense.apply(x2, w, unit_mask, block_n)
+    return y.reshape(lead + y.shape[-1:])
+
+
+def masked_contract(h: torch.Tensor, w: torch.Tensor, unit_mask: torch.Tensor,
+                    *, impl: str = REFERENCE,
+                    block_n: int = 128) -> torch.Tensor:
+    """Second half of a masked MLP: ``y = (h · unit_mask) @ w`` over the
+    masked contraction dim.  h: (..., N); w: (N, K); unit_mask: (N,)."""
+    if w.dim() != 2 or h.shape[-1] != w.shape[0]:
+        raise ValueError(f"masked_contract: h (..., N={h.shape[-1]}) does not "
+                         f"contract with w {tuple(w.shape)} (want (N, K))")
+    if tuple(unit_mask.shape) != (w.shape[0],):
+        raise ValueError(f"masked_contract: unit_mask "
+                         f"{tuple(unit_mask.shape)} must be (N,) = "
+                         f"({w.shape[0]},)")
+    if canonical_impl(impl) == REFERENCE:
+        return (h * unit_mask.to(h.dtype)) @ w
+    h2, lead = _collapse(h)
+    y = _MaskedContract.apply(h2, w, unit_mask, block_n)
+    return y.reshape(lead + y.shape[-1:])
+
+
+def masked_matmul(x: torch.Tensor, w: torch.Tensor, unit_mask: torch.Tensor,
+                  *, block_n: int = 128) -> torch.Tensor:
+    """y = x @ (w * unit_mask) on the column-skipping kernel, for a unit
+    mask of ANY length (a ragged tail block is simply a shorter block)."""
+    return _mm(x, w, unit_mask, _live(unit_mask, block_n), block_n)

@@ -1,0 +1,33 @@
+# repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
+"""Plain PyTorch versions of the CUDA kernels (the allclose targets).
+
+The kernel wrappers take these for tensors on the CPU, and ``chip_smoke.py``
+holds each kernel against them on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def _block_mask(live: torch.Tensor, block: int, length: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """(length,) 0/1 mask whose blocks listed in ``live`` are 1."""
+    nb = -(-length // block)
+    alive = torch.zeros(nb, dtype=dtype, device=live.device)
+    alive[live.long()] = 1
+    return alive.repeat_interleave(block)[:length]
+
+
+def masked_matmul_ref(x: torch.Tensor, w: torch.Tensor, live: torch.Tensor,
+                      block_n: int) -> torch.Tensor:
+    """y = x @ (w * column-block mask); ``live`` lists the live N-blocks."""
+    mask = _block_mask(live, block_n, w.shape[1], w.dtype)
+    return x @ (w * mask[None, :])
+
+
+def masked_matmul_dk_ref(x: torch.Tensor, w: torch.Tensor, live: torch.Tensor,
+                         block_k: int) -> torch.Tensor:
+    """y = x @ (w * row-block mask): the contraction blocks not in ``live``
+    are skipped (exact when the skipped entries of ``x`` are zero)."""
+    mask = _block_mask(live, block_k, w.shape[0], w.dtype)
+    return x @ (w * mask[:, None])
