@@ -5,18 +5,31 @@
 Phases (any failure exits nonzero; nothing is caught and ignored):
 
 1. the card's name and power limit; TF32 off for matmuls and convolutions;
-2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc;
-3. hold each kernel against its plain PyTorch version at the main-path
-   shapes (AlexNet fc0/fc1 forward, dx and dw at batch 32, P in {0.25, 0.5,
-   1.0}, f32 and bf16) and at ragged shapes; ``masked_dense`` forward and
-   backward against plain autograd;
-4. the main path: full-width AlexNet, a 2 + 2 Table-I non-IID fleet,
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
+   one nvcc per source, all started together;
+3. hold each masked-matmul kernel against its plain PyTorch version at the
+   AlexNet path's shapes (fc0/fc1 forward, dx and dw at batch 32, P in
+   {0.25, 0.5, 1.0}, f32 and bf16) and at ragged shapes; ``masked_dense``
+   forward and backward against plain autograd;
+4. the AlexNet path: full-width AlexNet, a 2 + 2 Table-I non-IID fleet,
    ``FLRun(..., kernels="cuda").run_sync(2)`` for helios and then syn, with
    the kernels' launch counters zeroed before and read after; the helios
    run is held against a ``kernels="reference"`` run on the card;
-5. time each kernel, its plain version and ``torch.matmul`` at the fc0
-   shapes with CUDA events, beside the least time the card could take, and
-   time whole rounds of the kernel path against the plain path.
+5. time each masked kernel, its plain version and ``torch.matmul`` at the
+   fc0 shapes with CUDA events, beside the least time the card could take,
+   and time whole rounds of the kernel path against the plain path;
+3b. hold the flash-attention kernel against its plain version at the LM
+   slice's shape (4, 32, 512, 128) causal, at (2, 8, 300, 64) causal and
+   ragged and at (2, 4, 256, 16) full, f32 and bf16, and the autograd op
+   (kernel forward, recompute backward) against plain autograd;
+4b. the LM path: the dense LM at DeepSeek-7B width with its depth cut from
+   30 to 2 layers, ``FLRun(..., kernels="cuda").run_sync(2)`` for helios
+   and then syn on the same fleet over Markov-topic token streams, with
+   the three kernels' counters zeroed before and read after; one training
+   step and two rounds of one local step held against the plain path;
+5b. time the flash kernel, its plain version and PyTorch's
+   ``scaled_dot_product_attention`` at the slice shape, a masked matmul at
+   the LM's MLP shape, and one helios LM round under the profiler.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and before that the
@@ -24,6 +37,8 @@ line before it is the card's name and power limit, and before that the
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -46,6 +61,11 @@ F32_TOL, BF16_TOL = 1e-4, 2e-2
 #: fc0 / fc1 of full-width AlexNet at the main path's batch of 32
 LAYERS = {"fc0": (4096, 1024), "fc1": (1024, 512)}
 BATCH = 32
+#: the LM slice: DeepSeek-7B width, depth cut to 2 layers, batch 4 x 512
+LM_LAYERS, LM_BATCH, LM_SEQ, LM_VOCAB = 2, 4, 512, 1024
+#: the flash kernel's checks: (B, H, S, hd, causal); the first is the slice
+FLASH_CASES = ((LM_BATCH, 32, LM_SEQ, 128, True), (2, 8, 300, 64, True),
+               (2, 4, 256, 16, False))
 
 
 def log(*a) -> None:
@@ -316,7 +336,9 @@ def _time_ms(fn, sets, reps: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
-def time_kernels(worst: dict, launches: dict) -> list:
+def time_kernels(worst: dict, launches: dict, lm_launches: dict) -> list:
+    """The masked kernels at the AlexNet fc0 shapes; ``launches`` counts
+    both paths' runs (each path's count is in ``launches_by_path``)."""
     from repro_torch.kernels import masked_matmul as K
     from repro_torch.kernels import ref
     k, n = LAYERS["fc0"]
@@ -347,7 +369,10 @@ def time_kernels(worst: dict, launches: dict) -> list:
                "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
                "replaces": "src/repro/kernels/masked_matmul.py:"
                            + ("87" if kind == "fwd" else "103"),
-               "launches": launches[name], "max_abs_err": worst[name],
+               "launches": launches[name] + lm_launches[name],
+               "launches_by_path": {"alexnet": launches[name],
+                                    "lm": lm_launches[name]},
+               "max_abs_err": worst[name],
                "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -371,6 +396,12 @@ def time_rounds(st) -> None:
         + json.dumps(walls))
     run = make_run("helios", "cuda", st)
     timed_run(run, 1, eval_every=0)
+    profile_round(run, "helios round")
+
+
+def profile_round(run, label: str) -> None:
+    """One round (no evaluation) under the profiler: wall, device busy
+    time, idle share and the device time of the heaviest ops."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -378,11 +409,312 @@ def time_rounds(st) -> None:
     rows = [e for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA")]
     busy_ms = sum(_device_us(e) for e in rows) / 1e3
-    log(f"profile one helios round: wall {wall * 1e3:.3f} ms, device busy "
+    if busy_ms <= 0:
+        raise AssertionError(f"profile {label}: no device time traced")
+    log(f"profile one {label}: wall {wall * 1e3:.3f} ms, device busy "
         f"{busy_ms:.3f} ms, idle share {1 - busy_ms / (wall * 1e3):.4f}")
     for e in sorted(rows, key=_device_us, reverse=True)[:12]:
         log(f"  device {_device_us(e) / 1e3:9.3f} ms  calls {e.count:5d}  "
             f"{e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the flash-attention kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _qkv(b: int, h: int, s: int, hd: int, dtype, g):
+    """q, k, v as the LM hands them over: (B, S, H, hd) buffers seen as
+    (B, H, S, hd) views."""
+    return [torch.randn(b, s, h, hd, device="cuda", generator=g)
+            .to(dtype).transpose(1, 2) for _ in range(3)]
+
+
+def check_flash() -> float:
+    """The flash kernel and the autograd op against their plain versions;
+    returns the worst f32 error at the slice shape."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ops, ref
+    g = torch.Generator(device="cuda").manual_seed(2)
+    worst = 0.0
+    for i, (b, h, s, hd, causal) in enumerate(FLASH_CASES):
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = _qkv(b, h, s, hd, dt, g)
+            y = FA.flash_attention(q, k, v, causal)
+            want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                           causal)
+            torch.cuda.synchronize()
+            err = float((y.float() - want).abs().max())
+            tol = (F32_TOL if dt == torch.float32 else BF16_TOL) * \
+                float(want.abs().max())
+            log(f"check flash_attention B={b} H={h} S={s} hd={hd} "
+                f"causal={causal} {str(dt)[6:]:8s} max|err|={err:.3e} "
+                f"tol={tol:.3e}")
+            if not (err <= tol and math.isfinite(err)):
+                raise AssertionError(f"flash_attention disagrees with its "
+                                     f"plain version: {err} > {tol}")
+            if i == 0 and dt == torch.float32:
+                worst = err
+    # the autograd op at the slice shape: kernel forward + recompute
+    # backward against plain autograd through the dense attention
+    b, h, s, hd, causal = FLASH_CASES[0]
+    q, k, v = _qkv(b, h, s, hd, torch.float32, g)
+    gy = torch.randn(b, h, s, hd, device="cuda", generator=g)
+    outs = {}
+    for impl in ("cuda", "reference"):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        y = ops.flash_attention(*leaves, causal=True, impl=impl)
+        outs[impl] = (y, *torch.autograd.grad(y, leaves, gy))
+    for a, w, what in zip(outs["cuda"], outs["reference"],
+                          ("y", "dq", "dk", "dv")):
+        err = float((a.detach() - w.detach()).abs().max())
+        tol = F32_TOL * float(w.detach().abs().max())
+        log(f"check flash op {what:2s} slice shape max|err|={err:.3e} "
+            f"tol={tol:.3e}")
+        if not err <= tol:
+            raise AssertionError(f"flash op {what} disagrees: {err}")
+    FA.reset_launches()
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the LM path
+# ---------------------------------------------------------------------------
+
+
+def lm_setting():
+    from repro_torch.configs import DEEPSEEK_7B, HeliosConfig
+    from repro_torch.data.federated import partition_by_topic
+    from repro_torch.data.synthetic import markov_topic_tokens
+    from repro_torch.models import init_params
+    from repro_torch.models.module import tree_leaves
+    cfg = dataclasses.replace(DEEPSEEK_7B, num_layers=LM_LAYERS)
+    tokens, topics = markov_topic_tokens(256, LM_SEQ, LM_VOCAB, n_topics=8)
+    test_tokens, _ = markov_topic_tokens(16, LM_SEQ, LM_VOCAB, n_topics=8,
+                                         seed=9)
+    parts = partition_by_topic(topics, 4, topics_per_client=2)
+    log(f"LM config: {cfg.name} width (d_model {cfg.d_model}, {cfg.num_heads}"
+        f" heads x {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}), depth cut from {DEEPSEEK_7B.num_layers} to "
+        f"{cfg.num_layers} layers; batch {LM_BATCH} x {LM_SEQ} tokens")
+    t0 = time.perf_counter()
+    init = init_params(cfg, 0, "cpu")        # host copy, reused by every run
+    log(f"LM params {sum(v.numel() for v in tree_leaves(init)) / 1e9:.3f} B, "
+        f"drawn in {time.perf_counter() - t0:.1f} s")
+    return cfg, HeliosConfig(mask_block=BLOCK), {"tokens": tokens}, \
+        {"tokens": test_tokens}, parts, init
+
+
+def make_lm_run(scheme: str, kernels: str, st, local_steps: int = 2,
+                nudge: float = 0.0):
+    from repro_torch.federated import FLRun, make_fleet, setup_clients
+    from repro_torch.models.module import tree_map
+    cfg, hcfg, train, test, parts, init = st
+    clients = setup_clients(make_fleet(2, 2), parts, hcfg, device="cuda")
+    if nudge:
+        init = tree_map(lambda v: v * (1 + nudge), init)
+    return FLRun(cfg, hcfg, scheme, clients, train, test,
+                 batch_size=LM_BATCH, local_steps=local_steps, lr=0.05,
+                 eval_batch=4, kernels=kernels, device="cuda",
+                 init_params=init)
+
+
+def _host_params(run) -> dict:
+    from repro_torch.models.module import tree_paths
+    return {k: v.detach().cpu() for k, v in tree_paths(run.global_params)}
+
+
+def _host_diff(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in b)
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def check_lm_step(st, params, strag_masks) -> None:
+    """One full-width LM training step, kernel path against plain path
+    from the same params and batch: loss and every gradient, with a
+    straggler's Eq. 2 masks and with full masks."""
+    from repro_torch.models import make_full_masks, transformer
+    from repro_torch.models.module import tree_paths
+    cfg, _, train, _, _, _ = st
+    batch = {"tokens": torch.as_tensor(train["tokens"][:LM_BATCH]).cuda()}
+    for who, masks in (("straggler", strag_masks),
+                       ("capable", make_full_masks(cfg, "cuda"))):
+        out = {}
+        for kernels in ("cuda", "reference"):
+            leaves = dict(tree_paths(params))
+            for v in leaves.values():
+                v.requires_grad_(True)
+            rt = transformer.default_runtime()
+            rt["kernels"], rt["mask_block"] = kernels, BLOCK
+            loss = transformer.lm_loss(params, batch, cfg, rt, masks)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            for v in leaves.values():
+                v.requires_grad_(False)
+            out[kernels] = (float(loss.detach()), dict(zip(leaves, grads)))
+        (la, ga), (lb, gb) = out["cuda"], out["reference"]
+        worst, at = max((float((ga[k] - gb[k]).abs().max())
+                         / max(float(gb[k].abs().max()), 1e-30), k)
+                        for k in gb)
+        log(f"LM step {who}: loss {la:.7f} vs {lb:.7f}, worst max|grad "
+            f"diff|/max|grad| {worst:.3e} ({at})")
+        if not (abs(la - lb) <= F32_TOL * abs(lb) and worst <= F32_TOL):
+            raise AssertionError(f"LM {who} step: kernel path disagrees with "
+                                 f"the plain path ({worst} at {at})")
+        del out, ga, gb
+        _free()
+
+
+def lm_path(st) -> dict:
+    """Helios then syn, two rounds each, on the kernel path; the three
+    kernels' counters are zeroed before and read after."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import masked_matmul as K
+    from repro_torch.models.module import tree_paths
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    FA.reset_launches()
+    hel = None
+    for scheme in ("helios", "syn"):
+        run = make_lm_run(scheme, "cuda", st)
+        hist, wall = timed_run(run, 2)
+        log(f"LM path {scheme}: 2 rounds in {wall:.3f} s")
+        for row in hist:
+            log("  history", json.dumps(row))
+        for k, v in tree_paths(run.global_params):
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"LM {scheme}: non-finite {k}")
+        if scheme == "helios":
+            hel = run
+        del run
+    launches = {**K.LAUNCHES, **FA.LAUNCHES}
+    log("LM path launches", json.dumps(launches))
+    log(f"LM path peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel never launched on the LM path: "
+                             f"{launches}")
+    strag = [r for c, r in zip(hel.clients, hel.history[-1]["ratios"])
+             if c.is_straggler]
+    if not strag or max(strag) >= 1.0:
+        raise AssertionError(f"LM helios straggler ratios not below 1: "
+                             f"{strag}")
+    strag_masks = next(c for c in hel.clients
+                       if c.is_straggler).helios_state["masks"]
+    params = hel.global_params
+    del hel
+    _free()
+    check_lm_step(st, params, strag_masks)
+    del params
+    _free()
+    # Two correct paths that sum in another order drift apart along the
+    # trajectory: print the drift over two rounds of 2 local steps beside
+    # the plain path's own drift under a 2^-23 nudge of its initial
+    # weights, and hold the paths to 1e-4 over two rounds of one step.
+    for steps in (2, 1):
+        host, hists = {}, {}
+        for name, kernels, nudge in (("cuda", "cuda", 0.0),
+                                     ("plain", "reference", 0.0),
+                                     ("nudged", "reference", 2.0 ** -23)):
+            run = make_lm_run("helios", kernels, st, local_steps=steps,
+                              nudge=nudge)
+            hists[name], _ = timed_run(run, 2)
+            host[name] = _host_params(run)
+            del run
+            _free()
+        diff = _host_diff(host["cuda"], host["plain"])
+        log(f"LM helios 2 rounds x {steps} local steps, lr 0.05: max|param "
+            f"diff| kernel vs plain {diff:.3e}, plain vs nudged plain "
+            f"{_host_diff(host['plain'], host['nudged']):.3e}")
+        del host
+    if not diff <= 1e-4:
+        raise AssertionError(f"LM kernel path drifts from the plain path: "
+                             f"{diff}")
+    for x, y in zip(hists["cuda"], hists["plain"]):
+        for key in ("cycle", "time", "volumes", "ratios"):
+            if x[key] != y[key]:
+                raise AssertionError(f"LM history {key} differs: {x[key]} "
+                                     f"vs {y[key]}")
+        if abs(x["ce"] - y["ce"]) > 1e-4 or abs(x["loss"] - y["loss"]) > 1e-4:
+            raise AssertionError(f"LM history ce/loss differ: {x} vs {y}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: LM timing
+# ---------------------------------------------------------------------------
+
+
+def time_flash(worst: float, launches: int) -> dict:
+    """The flash kernel, its plain version and PyTorch's SDPA (a yardstick
+    the port never calls) at the slice shape, f32."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ref
+    import torch.nn.functional as F
+    b, h, s, hd, causal = FLASH_CASES[0]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    sets = [tuple(_qkv(b, h, s, hd, torch.float32, g)) for _ in range(3)]
+    ms = _time_ms(lambda q, k, v: FA.flash_attention(q, k, v, causal), sets)
+    plain_ms = _time_ms(lambda q, k, v: ref.flash_attention_ref(q, k, v,
+                                                                causal), sets)
+    lib_ms = _time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal), sets)
+    pairs = s * (s + 1) // 2 if causal else s * s   # (query, key) pairs
+    flops = 4 * hd * pairs * b * h                  # q·kᵀ and p·v
+    nbytes = 4 * 4 * b * h * s * hd                 # q, k, v read; o written
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:70",
+           "launches": launches, "max_abs_err": worst, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": lib_ms}
+    log(f"time flash_attention B={b} H={h} S={s} hd={hd} causal f32: "
+        f"{ms:.4f} ms (plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, bound "
+        f"{row['bound_ms']:.4f} by {row['bound_by']}; "
+        f"{flops / ms / 1e9:.1f} TFLOP/s)")
+    return row
+
+
+def time_lm_mlp() -> None:
+    """The masked-matmul pair at the LM's MLP shapes (tokens 2048, d 4096,
+    d_ff 11008, P = 0.5), beside the plain version and torch.matmul."""
+    m, k, n, p = LM_BATCH * LM_SEQ, 4096, 11008, 0.5
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for name, kind in (("masked_matmul", "fwd"), ("masked_matmul_dk", "dx")):
+        fn, plain, x, w, live, _ = _case(kind, m, k, n, p, torch.float32, g)
+        sets = [(x, w, live, BLOCK)]
+        ms = _time_ms(fn, sets)
+        plain_ms = _time_ms(plain, sets)
+        lib_ms = _time_ms(torch.matmul, [(x, w)])
+        live_n = min(int(live.numel()) * BLOCK, n)
+        flops = 2 * m * k * live_n
+        log(f"time {name} LM mlp {kind} M={m} K={k} N={n} P={p}: {ms:.4f} "
+            f"ms (plain {plain_ms:.4f}, torch.matmul P=1 {lib_ms:.4f}, bound "
+            f"{flops / PEAK_F32 * 1e3:.4f} by operations; "
+            f"{flops / ms / 1e9:.1f} TFLOP/s)")
+        del x, w
+
+
+def time_lm_round(st) -> None:
+    """One helios LM round (no evaluation), kernel path against plain path
+    in turns, then one kernel-path round under the profiler."""
+    walls = {"cuda": [], "reference": []}
+    for kernels in ("cuda", "reference", "reference", "cuda"):
+        run = make_lm_run("helios", kernels, st)
+        timed_run(run, 1, eval_every=0)                  # warm-up round
+        _, wall = timed_run(run, 1, eval_every=0)
+        walls[kernels].append(wall)
+        if kernels == "cuda" and len(walls["cuda"]) == 2:
+            profile_round(run, "helios LM round")
+        del run
+        _free()
+    log("LM round wall s helios (1 round after a warm-up round): "
+        + json.dumps(walls))
 
 
 def _device_us(e) -> float:
@@ -409,7 +741,7 @@ def main() -> int:
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    build.build(["masked_matmul"])
+    build.build(["masked_matmul", "flash_attention"])
     log(f"built kernels in {time.perf_counter() - t0:.1f} s")
     for name, text in build.BUILD_LOG.items():
         for ln in text.splitlines():
@@ -419,8 +751,17 @@ def main() -> int:
     worst = check_kernels()
     st = setting()
     launches = main_path(st)
-    kernels = time_kernels(worst, launches)
     time_rounds(st)
+    del st
+    _free()
+
+    flash_worst = check_flash()
+    lm_st = lm_setting()
+    lm_launches = lm_path(lm_st)
+    kernels = time_kernels(worst, launches, lm_launches)
+    kernels.append(time_flash(flash_worst, lm_launches["flash_attention"]))
+    time_lm_mlp()
+    time_lm_round(lm_st)
 
     log(json.dumps({"kernels": kernels}))
     log(line)

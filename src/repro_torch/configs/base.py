@@ -1,7 +1,7 @@
 # repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
-"""Configuration dataclasses for the PyTorch port (the fields the CNN slice reads).
+"""Configuration dataclasses for the PyTorch port (the fields its slices read).
 
-* :class:`ModelConfig`  — architecture of one paper-testbed CNN.
+* :class:`ModelConfig`  — architecture of a paper-testbed CNN or a dense LM.
 * :class:`HeliosConfig` — the paper's soft-training knobs (Sections IV-VI).
 
 Frozen dataclasses, field for field the same names and defaults as the JAX
@@ -13,16 +13,47 @@ import dataclasses
 from typing import Tuple
 
 
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description (``family`` is ``cnn`` for every model here)."""
+    """Architecture description; ``family`` is ``cnn`` or ``dense``.
+
+    The LM sizes have no default in the reference; here they default to 0
+    so the CNN configs need not name them."""
 
     name: str
     family: str
+    num_layers: int = 0
+    d_model: int = 0
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+
+    head_dim: int = 0                      # 0 -> d_model // num_heads
+    qkv_bias: bool = False
+    norm: str = "rmsnorm"                  # rmsnorm | layernorm
+    activation: str = "silu"               # silu (SwiGLU) | gelu
+    rope_theta: float = 10_000.0
+    tie_embeddings: bool = False
+
+    # ---- CNN (paper testbed) ----
     image_size: int = 0
     in_channels: int = 0
     num_classes: int = 0
     cnn_channels: Tuple[int, ...] = ()
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to a multiple of 128, as the reference pads it."""
+        return _round_up(self.vocab_size, 128)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -7,15 +7,18 @@
   trained each coordinate; coordinates nobody trained keep the global value.
 * ``uniform``: plain FedAvg (the Syn. FL baseline).
 
-Parameters are flat dicts of tensors; sums run in float32 in client order.
+Parameters are dicts of tensors, flat (CNN) or nested (LM); sums run in
+float32 in client order, leaf by leaf.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 
-Params = Dict[str, torch.Tensor]
+from repro_torch.models.module import tree_leaves, tree_map
+
+Params = Dict[str, Any]
 
 
 def alpha_weights(ratios: Sequence, device=None) -> torch.Tensor:
@@ -25,20 +28,21 @@ def alpha_weights(ratios: Sequence, device=None) -> torch.Tensor:
 
 
 def _device(params: Params):
-    return next(iter(params.values())).device
+    return tree_leaves(params)[0].device
 
 
 def aggregate_alpha(global_params: Params, client_params: Sequence[Params],
                     ratios: Sequence) -> Params:
     """Eq. 10: theta = sum_n alpha_n theta_n."""
     a = alpha_weights(ratios, _device(global_params))
-    out = {}
-    for k, g in global_params.items():
+
+    def leaf(g, *cps):
         acc = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
-        for i, cp in enumerate(client_params):
-            acc = acc + a[i] * cp[k].float()
-        out[k] = acc.to(g.dtype)
-    return out
+        for i, cp in enumerate(cps):
+            acc = acc + a[i] * cp.float()
+        return acc.to(g.dtype)
+
+    return tree_map(leaf, global_params, *client_params)
 
 
 def aggregate_masked_mean(global_params: Params,
@@ -51,17 +55,18 @@ def aggregate_masked_mean(global_params: Params,
     dev = _device(global_params)
     a = alpha_weights(ratios, dev) if ratios is not None else \
         torch.full((n,), 1.0 / n, dtype=torch.float32, device=dev)
-    out = {}
-    for k, g in global_params.items():
+
+    def leaf(g, *rest):
+        cps, ms = rest[:n], rest[n:]
         num = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
         den = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
         for i in range(n):
-            m = client_masks[i][k]
-            num = num + a[i] * m * client_params[i][k].float()
-            den = den + a[i] * m
-        out[k] = torch.where(den > 0, num / torch.clamp(den, min=1e-9),
-                             g.float()).to(g.dtype)
-    return out
+            num = num + a[i] * ms[i] * cps[i].float()
+            den = den + a[i] * ms[i]
+        return torch.where(den > 0, num / torch.clamp(den, min=1e-9),
+                           g.float()).to(g.dtype)
+
+    return tree_map(leaf, global_params, *client_params, *client_masks)
 
 
 def aggregate_uniform(global_params: Params,

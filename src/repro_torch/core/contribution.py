@@ -2,15 +2,90 @@
 """Collaboration-contribution metric (paper Eq. 1).
 
 U^{ij}(S_k) = theta^{ij}(S_k) - theta^{ij}(S_{k-1}) per neuron, reduced with
-an L1 norm over each unit's fan-in entries plus its bias.  For the CNN
-testbed the mask-schema keys are parameter-name prefixes (conv0, fc1, ...)
-and the unit dim is the LAST dim of the weight (HWIO / (din, dout)).
+an L1 norm over every other entry of the parameters that carry the unit.
+
+* :func:`unit_scores` is driven by LOGICAL AXES (the LM): for unit key
+  ``mlp`` every parameter with an ``mlp`` axis contributes |delta| summed
+  over all its other dims, aligned to the (layers, units) mask layout.
+* :func:`cnn_unit_scores` is the CNN testbed's: the mask-schema keys are
+  parameter-name prefixes (conv0, fc1, ...) and the unit dim is the LAST
+  dim of the weight (HWIO / (din, dout)).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+
+from repro_torch.models.module import tree_map, tree_paths
+
+#: mask-schema key -> the logical axis that identifies the unit dim
+UNIT_AXES = {
+    "mlp": "mlp",
+    "heads": "heads",
+    "enc_heads": "heads",
+    "cross_heads": "heads",
+    "enc_mlp": "mlp",
+    "experts": "experts",
+    "ssm_heads": "ssm_heads",
+    "slstm_heads": "ssm_heads",
+}
+
+
+def _reduce_to_units(arr: torch.Tensor, axes: tuple, unit_axis: str,
+                     layered: bool) -> Optional[torch.Tensor]:
+    """|arr| summed over every dim except (layers?, unit_axis)."""
+    stacked = layered and bool(axes) and axes[0] == "layers"
+    keep = [0] if stacked else []
+    try:
+        keep.append(axes.index(unit_axis))
+    except ValueError:
+        return None
+    red = tuple(i for i in range(arr.dim()) if i not in keep)
+    out = arr.float().abs().sum(dim=red)
+    return out if stacked else out[None]                  # (1, units)
+
+
+def unit_scores(delta_tree, axes_tree, schema: Dict[str, tuple],
+                key_prefixes: Optional[Dict[str, str]] = None
+                ) -> Dict[str, torch.Tensor]:
+    """Per-unit L1 scores of a param-delta (or grad) tree:
+    {schema_key: (layers, units) float32}.  ``key_prefixes`` restricts a
+    schema key to param paths containing a path component, as do keys of
+    the form ``"prefix:axis"``; the reference's encoder / cross-attention
+    path filters are kept as they are."""
+    params = dict(tree_paths(delta_tree))
+    axes = dict(tree_paths(axes_tree, is_leaf=lambda x: isinstance(x, tuple)))
+    dev = next(iter(params.values())).device
+    out = {}
+    for key, shape in schema.items():
+        if ":" in key:
+            prefix, axis_key = key.split(":", 1)
+        else:
+            prefix, axis_key = (key_prefixes or {}).get(key), key
+        unit_axis = UNIT_AXES.get(axis_key, "filters")
+        acc = torch.zeros(shape, dtype=torch.float32, device=dev)
+        for path, arr in params.items():
+            ax = axes.get(path)
+            if ax is None or unit_axis not in ax:
+                continue
+            if prefix is not None and f"/{prefix}/" not in f"/{path}/":
+                continue
+            if axis_key.startswith("enc_") and "enc_" not in path:
+                continue
+            if not axis_key.startswith("enc_") and prefix is None and \
+                    axis_key in ("heads", "mlp") and path.startswith("enc_"):
+                continue
+            if axis_key == "cross_heads" and "/cross/" not in f"/{path}/":
+                continue
+            if axis_key == "heads" and "cross" in path:
+                continue
+            r = _reduce_to_units(arr, ax, unit_axis, layered=True)
+            if r is None or tuple(r.shape) != tuple(shape):
+                continue
+            acc = acc + r
+        out[key] = acc
+    return out
 
 
 def cnn_unit_scores(delta_tree: Dict[str, torch.Tensor],
@@ -30,10 +105,9 @@ def cnn_unit_scores(delta_tree: Dict[str, torch.Tensor],
     return out
 
 
-def delta(params_new: Dict[str, torch.Tensor],
-          params_old: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    return {k: params_new[k].float() - params_old[k].float()
-            for k in params_new}
+def delta(params_new, params_old):
+    return tree_map(lambda a, b: a.float() - b.float(), params_new,
+                    params_old)
 
 
 def ema_update(scores_prev: Dict[str, torch.Tensor],

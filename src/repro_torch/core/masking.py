@@ -1,10 +1,75 @@
 # repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
-"""Expand per-unit Helios masks into parameter-space masks (CNN testbed)."""
+"""Expand per-unit Helios masks into parameter-space masks.
+
+:func:`expand_masks` is driven by logical axes (the LM): a parameter whose
+axes carry several maskable unit axes gets the OUTER PRODUCT of the unit
+masks, and a parameter with none gets ones.  :func:`cnn_expand_masks` is
+the CNN testbed's prefix-keyed variant.
+"""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
+
+from repro_torch.core.contribution import UNIT_AXES
+from repro_torch.models.module import tree_paths, unflatten
+
+
+def _match(key: str, path: str, axes: tuple) -> Optional[str]:
+    """The unit axis name if schema ``key`` applies to this param."""
+    if ":" in key:
+        prefix, axis_key = key.split(":", 1)
+        if f"/{prefix}/" not in f"/{path}/":
+            return None
+    else:
+        axis_key = key
+    unit_axis = UNIT_AXES.get(axis_key, "filters")
+    if unit_axis not in axes:
+        return None
+    if axis_key.startswith("enc_") and "enc_" not in path:
+        return None
+    if not axis_key.startswith("enc_") and axis_key in ("heads", "mlp") and \
+            path.startswith("enc_"):
+        return None
+    if axis_key == "cross_heads" and "/cross/" not in f"/{path}/":
+        return None
+    if axis_key == "heads" and "cross" in path:
+        return None
+    return unit_axis
+
+
+def expand_masks(axes_tree, unit_masks: Dict[str, torch.Tensor], params_tree):
+    """Params-shaped 0/1 mask tree from (layers, units) unit masks.
+    Parameters with no maskable axis get ones (norms, embeddings...)."""
+    axes = dict(tree_paths(axes_tree, is_leaf=lambda x: isinstance(x, tuple)))
+    out = {}
+    for path, arr in tree_paths(params_tree):
+        ax = axes.get(path)
+        m = torch.ones(arr.shape, dtype=torch.float32, device=arr.device)
+        if ax is not None:
+            layered = bool(ax) and ax[0] == "layers"
+            for key, um in unit_masks.items():
+                unit_axis = _match(key, path, ax)
+                if unit_axis is None:
+                    continue
+                dim = ax.index(unit_axis)
+                n_layers, n_units = um.shape
+                if arr.shape[dim] != n_units:
+                    continue
+                if layered and arr.shape[0] != n_layers:
+                    continue
+                if not layered and n_layers != 1:
+                    continue
+                shape = [1] * arr.dim()
+                shape[dim] = n_units
+                if layered:
+                    shape[0] = n_layers
+                    m = m * um.reshape(shape)
+                else:
+                    m = m * um[0].reshape(shape)
+        out[path] = m
+    return unflatten(out)
 
 
 def cnn_expand_masks(unit_masks: Dict[str, torch.Tensor],

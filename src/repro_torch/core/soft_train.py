@@ -77,5 +77,11 @@ def end_cycle(state: dict, scores_new: Dict[str, torch.Tensor],
     }
 
 
+def cycle_scores(params_new, params_old, axes_tree,
+                 schema) -> Dict[str, torch.Tensor]:
+    """Eq. 1 scores from a cycle's parameter delta (axis-driven)."""
+    return C.unit_scores(C.delta(params_new, params_old), axes_tree, schema)
+
+
 def set_volume(state: dict, volume: float) -> dict:
     return {**state, "volume": np.float32(volume)}

@@ -1,9 +1,11 @@
 # repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
-"""Family adapter: the seam between the CNN testbed and the round engine.
+"""Family adapters: the seam between model families and the round engine.
 
-Everything that varies by model family — batch sampling, the eval metric,
-per-unit cycle scores and parameter-space mask expansion — lives here, so
-the engine stays family-blind.  The port has the CNN family.
+Everything that varies by model family — the batch dict (images + labels
+or a token stream), the eval metric (accuracy or cross-entropy), per-unit
+cycle scores and parameter-space mask expansion — lives behind an adapter,
+so the engine stays family-blind.  The port has the CNN testbed and the
+dense LM; :func:`make_adapter` dispatches on ``cfg.family``.
 """
 from __future__ import annotations
 
@@ -15,21 +17,22 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import contribution as C
 from repro_torch.core import masking as MK
-from repro_torch.models import cnn
+from repro_torch.core import soft_train as ST
+from repro_torch.models import build, cnn, logical_axes, transformer
 
 
-class CNNAdapter:
-    """Paper testbed: image classification, prefix-keyed mask schema."""
+class FamilyAdapter:
+    """Example-indexed data handling shared by every family, plus the
+    family hooks a subclass provides."""
 
-    metric_name = "acc"
+    #: history/metric key ("acc" higher-is-better, "ce" lower-is-better)
+    metric_name = "metric"
 
     def __init__(self, cfg: ModelConfig, kernels: str, mask_block: int,
                  device: torch.device):
-        if cfg.family != "cnn":
-            raise NotImplementedError(
-                f"the port federates the CNN family only, got {cfg.family!r}")
         self.cfg = cfg
-        self.schema = cnn.cnn_mask_schema(cfg)
+        self.api = build(cfg)
+        self.schema = self.api.mask_schema
         #: execution substrate of the training loss: "reference" or "cuda"
         self.kernels = kernels
         self.mask_block = mask_block
@@ -58,12 +61,30 @@ class CNNAdapter:
 
     # -- family hooks --------------------------------------------------
     def loss_fn(self, params, batch, masks):
+        raise NotImplementedError
+
+    def eval_chunk(self, params, batch):
+        """(metric sum as a device scalar, example count)."""
+        raise NotImplementedError
+
+    def cycle_scores(self, params_new, params_old):
+        raise NotImplementedError
+
+    def expand_masks(self, unit_masks, params):
+        raise NotImplementedError
+
+
+class CNNAdapter(FamilyAdapter):
+    """Paper testbed: image classification, prefix-keyed mask schema."""
+
+    metric_name = "acc"
+
+    def loss_fn(self, params, batch, masks):
         rt = {"kernels": self.kernels, "mask_block": self.mask_block}
         return cnn.cnn_loss(params, batch, self.cfg, rt, masks)
 
     @torch.no_grad()
     def eval_chunk(self, params, batch):
-        """(correct count as a device scalar, example count)."""
         logits = cnn.cnn_logits(params, batch["images"], self.cfg)
         correct = (logits.argmax(-1) == batch["labels"]).sum()
         return correct.float(), float(batch["labels"].shape[0])
@@ -73,3 +94,51 @@ class CNNAdapter:
 
     def expand_masks(self, unit_masks, params):
         return MK.cnn_expand_masks(unit_masks, params)
+
+
+class TokenLMAdapter(FamilyAdapter):
+    """Token-stream LM (the dense family): axis-driven scores,
+    cross-entropy eval, logical-axes mask expansion."""
+
+    metric_name = "ce"
+
+    def __init__(self, cfg: ModelConfig, kernels: str, mask_block: int,
+                 device: torch.device):
+        super().__init__(cfg, kernels, mask_block, device)
+        self.axes = logical_axes(cfg)
+        self.rt = transformer.default_runtime()
+        self.rt["kernels"] = kernels
+        self.rt["mask_block"] = mask_block
+        # evaluation runs the reference substrate, as in the JAX package:
+        # there are no masks to skip
+        self.eval_rt = transformer.default_runtime()
+
+    def loss_fn(self, params, batch, masks):
+        return self.api.loss_fn(params, batch, self.cfg, self.rt, masks)
+
+    @torch.no_grad()
+    def eval_chunk(self, params, batch):
+        ce = self.api.loss_fn(params, batch, self.cfg, self.eval_rt, None)
+        n = batch["tokens"].shape[0]
+        return ce * n, float(n)
+
+    def cycle_scores(self, params_new, params_old):
+        return ST.cycle_scores(params_new, params_old, self.axes, self.schema)
+
+    def expand_masks(self, unit_masks, params):
+        return MK.expand_masks(self.axes, unit_masks, params)
+
+
+_ADAPTERS = {"cnn": CNNAdapter, "dense": TokenLMAdapter}
+
+
+def make_adapter(cfg: ModelConfig, kernels: str, mask_block: int,
+                 device: torch.device) -> FamilyAdapter:
+    """Family dispatch for the round engine."""
+    try:
+        cls = _ADAPTERS[cfg.family]
+    except KeyError:
+        raise NotImplementedError(
+            f"no FamilyAdapter for family {cfg.family!r} (supported "
+            f"families: {tuple(_ADAPTERS)})") from None
+    return cls(cfg, kernels, mask_block, device)

@@ -26,16 +26,18 @@ from repro_torch.core.identification import (DeviceProfile,
                                              identify_resource_based,
                                              identify_time_based)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.federated.adapter import CNNAdapter
+from repro_torch.federated.adapter import FamilyAdapter, make_adapter
 from repro_torch.federated.heterogeneity import cycle_time
 from repro_torch.federated.schemes import Scheme, make_scheme
 from repro_torch.kernels.ops import canonical_impl
 from repro_torch.models import init_params as _init_params
+from repro_torch.models.module import (tree_leaves, tree_map, tree_paths,
+                                       unflatten)
 from repro_torch.obs.recorder import Recorder
 from repro_torch.optim import apply_updates, make_optimizer
 
 
-def _make_local_train(adapter: CNNAdapter, opt):
+def _make_local_train(adapter: FamilyAdapter, opt):
     """E masked local SGD steps (a Python loop over the leading
     ``local_steps`` axis of ``batches``); the optimizer state restarts each
     cycle.  Returns (new params, mean loss as a device scalar)."""
@@ -45,14 +47,19 @@ def _make_local_train(adapter: CNNAdapter, opt):
         losses = []
         for i in range(next(iter(batches.values())).shape[0]):
             batch = {k: v[i] for k, v in batches.items()}
-            leaves = {k: p.detach().requires_grad_(True)
-                      for k, p in params.items()}
+            leaves = tree_map(lambda p: p.detach().requires_grad_(True),
+                              params)
             loss = adapter.loss_fn(leaves, batch, masks)
-            grads = dict(zip(leaves, torch.autograd.grad(
-                loss, list(leaves.values()))))
+            paths = tree_paths(leaves)
+            grads = unflatten(dict(zip(
+                (k for k, _ in paths),
+                torch.autograd.grad(loss, [v for _, v in paths]))))
             updates, opt_state = opt.update(grads, opt_state, params, 0)
             params = apply_updates(params, updates)
             losses.append(loss.detach())
+            # a full-width LM step holds several model-sized trees: free
+            # this step's before the next one's backward allocates its own
+            del grads, updates
         return params, torch.stack(losses).mean()
 
     return local_train
@@ -95,7 +102,8 @@ class FLRun:
     seed: int = 0
     eval_batch: int = 512              # eval CHUNK size (full set is scored)
     #: soft-training substrate: "reference" (plain masked ops) or "cuda"
-    #: (block-sparse masked-matmul kernels; "pallas" is an alias)
+    #: (block-sparse masked-matmul kernels, and flash attention for the
+    #: LM; "pallas" is an alias)
     kernels: str = "reference"
     #: kernel skip granularity; 0 follows HeliosConfig.mask_block (128 when
     #: that is 0 too), so selection blocks and kernel blocks agree
@@ -111,19 +119,21 @@ class FLRun:
         self._scheme: Scheme = make_scheme(self.scheme)
         self.kernels = canonical_impl(self.kernels)
         self.mask_block = self.mask_block or self.hcfg.mask_block or 128
-        self.adapter = CNNAdapter(self.cfg, self.kernels, self.mask_block,
-                                  self.device)
+        self.adapter = make_adapter(self.cfg, self.kernels, self.mask_block,
+                                    self.device)
         if self.init_params is None:
             self.global_params = _init_params(self.cfg, self.seed, self.device)
         else:
-            self.global_params = {
-                k: (v.detach() if torch.is_tensor(v) else
-                    torch.tensor(np.array(v))).to(self.device, copy=True)
-                for k, v in self.init_params.items()}
+            self.global_params = tree_map(
+                lambda v: (v.detach() if torch.is_tensor(v) else
+                           torch.tensor(np.array(v))).to(self.device,
+                                                         copy=True),
+                dict(self.init_params))
         self.opt = make_optimizer("momentum", self.lr)
         self.rng = np.random.default_rng(self.seed)
         self.history: List[dict] = []
-        self._n_params = sum(p.numel() for p in self.global_params.values())
+        self._n_params = sum(p.numel()
+                             for p in tree_leaves(self.global_params))
         self.rec = Recorder()
         for c in self.clients:
             c.helios_state = ST.init_state(self.adapter.schema,
@@ -183,8 +193,9 @@ class FLRun:
                                           ratios=ratios, client_masks=masks)
 
     def evaluate(self) -> float:
-        """Full-test-set accuracy in chunks of ``eval_batch`` (the one place
-        the loop waits for the device)."""
+        """Full-test-set metric (accuracy, or cross-entropy for the LM) in
+        chunks of ``eval_batch`` (the one place the loop waits for the
+        device)."""
         n = self.adapter.num_examples(self.test_data)
         total = weight = 0.0
         for lo in range(0, n, self.eval_batch):

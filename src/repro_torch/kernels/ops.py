@@ -1,6 +1,6 @@
 # repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
-"""Differentiable wrappers of the masked-matmul kernels: the execution seam
-of kernel-backed soft-training.
+"""Differentiable wrappers of the CUDA kernels: the execution seam of
+kernel-backed soft-training (masked matmuls and flash attention).
 
 The model layers call :func:`masked_dense` / :func:`masked_contract` with
 ``impl="reference" | "cuda"`` (``"pallas"`` is an alias of ``"cuda"``, so
@@ -14,6 +14,10 @@ JAX configs carry over) and get the same numbers either way:
   kernel, with EXACTLY-zero gradients for masked-out columns (Helios
   frozen-neuron semantics) and no gradient for the mask.
 
+:func:`flash_attention` runs the attention kernel forward and, as the
+reference does, differentiates by recomputing the plain attention under
+autograd in its backward (no backward kernel).
+
 On a CPU tensor the kernel wrappers compute their plain versions, so the
 same autograd structure runs in the CPU tests.  The kernels mask ragged
 edges themselves: no operand is padded here.
@@ -26,7 +30,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.weak import WeakIdKeyDictionary
 
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import masked_matmul as K
+from repro_torch.kernels import ref
 
 #: canonical values of the ``kernels`` / ``impl`` knobs
 CUDA = "cuda"
@@ -200,3 +206,44 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, unit_mask: torch.Tensor,
     """y = x @ (w * unit_mask) on the column-skipping kernel, for a unit
     mask of ANY length (a ragged tail block is simply a shorter block)."""
     return _mm(x, w, unit_mask, _live(unit_mask, block_n), block_n)
+
+
+# ---------------------------------------------------------------------------
+# flash attention + recompute backward
+# ---------------------------------------------------------------------------
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel forward; the backward re-evaluates the plain attention and
+    differentiates it, so the O(S²) scores live only inside the backward
+    (the reference's ``_flash_diff``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return FA.flash_attention(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, dy):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = ref.flash_attention_ref(*leaves, causal=ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, leaves, dy)
+        return dq, dk, dv, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, impl: str = CUDA) -> torch.Tensor:
+    """q, k, v: (B, H, S, hd) -> (B, H, S, hd), differentiable.
+
+    ``impl="cuda"`` runs the flash kernel forward and the recompute
+    backward; ``"reference"`` is plain autograd through the dense
+    attention.  Any length works (ragged tiles are masked in the kernel);
+    ``causal`` needs Sq == Sk.
+    """
+    FA.check_operands(q, k, v, causal)
+    if canonical_impl(impl) == REFERENCE:
+        return ref.flash_attention_ref(q, k, v, causal)
+    return _FlashAttention.apply(q, k, v, causal)

@@ -31,3 +31,18 @@ def masked_matmul_dk_ref(x: torch.Tensor, w: torch.Tensor, live: torch.Tensor,
     are skipped (exact when the skipped entries of ``x`` are zero)."""
     mask = _block_mask(live, block_k, w.shape[0], w.dtype)
     return x @ (w * mask[:, None])
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Dense softmax attention.  q, k, v: (B, H, S, hd); f32 arithmetic,
+    masked scores at -1e30, output in q's dtype."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        sq, sk = s.shape[-2], s.shape[-1]
+        mask = torch.arange(sq, device=s.device)[:, None] >= \
+            torch.arange(sk, device=s.device)[None, :]
+        s = torch.where(mask, s, torch.full((), -1e30, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.matmul(p, v.float()).to(q.dtype)

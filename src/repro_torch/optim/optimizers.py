@@ -1,5 +1,6 @@
 # repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
-"""Functional optimizers over flat parameter dicts (no ``torch.optim``).
+"""Functional optimizers over parameter dicts, flat or nested (no
+``torch.optim``).
 
 The API mirrors the reference's gradient-transformation convention::
 
@@ -14,11 +15,13 @@ Updates build new tensors: the parameters a caller passed in stay intact.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple
 
 import torch
 
-Params = Dict[str, torch.Tensor]
+from repro_torch.models.module import tree_map
+
+Params = Dict[str, Any]
 
 
 class Optimizer(NamedTuple):
@@ -33,7 +36,7 @@ def _lr_at(lr, step):
 @torch.no_grad()
 def apply_updates(params: Params, updates: Params) -> Params:
     """p <- p + u, summed in float32 and cast back to the param's dtype."""
-    return {k: (p.float() + updates[k]).to(p.dtype) for k, p in params.items()}
+    return tree_map(lambda p, u: (p.float() + u).to(p.dtype), params, updates)
 
 
 def sgd(lr) -> Optimizer:
@@ -43,22 +46,21 @@ def sgd(lr) -> Optimizer:
     @torch.no_grad()
     def update(grads, state, params, step):
         lrv = _lr_at(lr, step)
-        return {k: -lrv * g.float() for k, g in grads.items()}, state
+        return tree_map(lambda g: -lrv * g.float(), grads), state
 
     return Optimizer(init, update)
 
 
 def momentum(lr, beta: float = 0.9) -> Optimizer:
     def init(params):
-        return {"m": {k: torch.zeros(p.shape, dtype=torch.float32,
-                                     device=p.device)
-                      for k, p in params.items()}}
+        return {"m": tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)}
 
     @torch.no_grad()
     def update(grads, state, params, step):
-        m = {k: beta * state["m"][k] + g.float() for k, g in grads.items()}
+        m = tree_map(lambda mp, g: beta * mp + g.float(), state["m"], grads)
         lrv = _lr_at(lr, step)
-        return {k: -lrv * mm for k, mm in m.items()}, {"m": m}
+        return tree_map(lambda mm: -lrv * mm, m), {"m": m}
 
     return Optimizer(init, update)
 
