@@ -29,7 +29,24 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    step and two rounds of one local step held against the plain path;
 5b. time the flash kernel, its plain version and PyTorch's
    ``scaled_dot_product_attention`` at the slice shape, a masked matmul at
-   the LM's MLP shape, and one helios LM round under the profiler.
+   the LM's MLP shape, and one helios LM round under the profiler;
+3c. hold the ``ssd_diag`` kernel against its plain version at the hybrid
+   slice's shape (B, nc, L, ds, nh, hd) = (4, 2, 256, 64, 64, 64), at the
+   ragged (2, 1, 300, 16, 8, 16) and at the reference test's
+   (1, 2, 64, 16, 2, 32), f32 and bf16, and at the slice shape with the
+   model's own decay (dt ≈ 0.7, A = -1), where the reference's decay
+   overflows; the autograd op (kernel forward, recompute backward) against
+   plain autograd;
+4c. the hybrid path: Zamba2-1.2B at full width with its depth cut from 38
+   to 18 Mamba2 layers (three invocations of the shared block),
+   ``FLRun(..., kernels="cuda").run_sync(2)`` for helios and then syn on
+   the LM's fleet and data, with every kernel's counter zeroed before and
+   read after (144 ``ssd_diag`` launches a round, no other kernel); every
+   loss and parameter finite; one training step and two rounds of one
+   local step held against the plain path;
+5c. time the ``ssd_diag`` kernel and its plain version at the slice shape
+   beside its bound, and one helios hybrid round, kernel path against
+   plain path, then under the profiler.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and before that the
@@ -66,6 +83,12 @@ LM_LAYERS, LM_BATCH, LM_SEQ, LM_VOCAB = 2, 4, 512, 1024
 #: the flash kernel's checks: (B, H, S, hd, causal); the first is the slice
 FLASH_CASES = ((LM_BATCH, 32, LM_SEQ, 128, True), (2, 8, 300, 64, True),
                (2, 4, 256, 16, False))
+#: the hybrid slice: Zamba2-1.2B width, depth cut to 18 Mamba2 layers
+HY_LAYERS = 18
+#: the ssd_diag kernel's checks: (B, nc, L, ds, nh, hd); the first is the
+#: slice (batch 4 x 512 tokens in chunks of 256)
+SSD_CASES = ((LM_BATCH, 2, 256, 64, 64, 64), (2, 1, 300, 16, 8, 16),
+             (1, 2, 64, 16, 2, 32))
 
 
 def log(*a) -> None:
@@ -717,6 +740,288 @@ def time_lm_round(st) -> None:
         + json.dumps(walls))
 
 
+# ---------------------------------------------------------------------------
+# phase 3c: the ssd_diag kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+def _ssd_inputs(b, nc, L, ds, nh, hd, dtype, g, model_decay=False):
+    """cr, br, dtx ~ N(0, 1) in ``dtype``; a decreasing cumulative
+    log-decay in f32: the reference test's (|N| · 0.1 a step) or the
+    model's at initialisation (softplus(N) · A with A = -1)."""
+    cr, br = (torch.randn(b, nc, L, ds, device="cuda", generator=g)
+              .to(dtype) for _ in range(2))
+    a = torch.randn(b, nc, L, nh, device="cuda", generator=g)
+    a = -torch.nn.functional.softplus(a) if model_decay else -a.abs() * 0.1
+    dtx = torch.randn(b, nc, L, nh, hd, device="cuda", generator=g).to(dtype)
+    return cr, br, torch.cumsum(a, dim=2), dtx
+
+
+def check_ssd() -> float:
+    """The ssd_diag kernel and the autograd op against their plain
+    versions; returns the worst f32 error at the slice shape."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ssd_scan as SS
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+    cases = [(c, dt, False) for c in SSD_CASES
+             for dt in (torch.float32, torch.bfloat16)]
+    cases.append((SSD_CASES[0], torch.float32, True))
+    for i, (shape, dt, model_decay) in enumerate(cases):
+        cr, br, cum, dtx = _ssd_inputs(*shape, dt, g, model_decay)
+        y = SS.ssd_diag(cr, br, cum, dtx)
+        want = ref.ssd_diag_ref(cr.float(), br.float(), cum, dtx.float())
+        torch.cuda.synchronize()
+        err = float((y.float() - want).abs().max())
+        tol = (F32_TOL if dt == torch.float32 else BF16_TOL) * \
+            max(1.0, float(want.abs().max()))
+        log(f"check ssd_diag (B, nc, L, ds, nh, hd)={shape} "
+            f"{str(dt)[6:]:8s} {'model decay' if model_decay else ''} "
+            f"max|err|={err:.3e} tol={tol:.3e}")
+        if not (err <= tol and math.isfinite(err)
+                and bool(torch.isfinite(y).all())):
+            raise AssertionError(f"ssd_diag disagrees with its plain "
+                                 f"version: {err} > {tol}")
+        if i == 0:
+            worst = err
+    # the autograd op at the slice shape, with the model's decay
+    cr, br, cum, dtx = _ssd_inputs(*SSD_CASES[0], torch.float32, g, True)
+    gy = torch.randn(dtx.shape, device="cuda", generator=g)
+    outs = {}
+    for impl in ("cuda", "reference"):
+        leaves = [t.detach().requires_grad_(True) for t in (cr, br, cum, dtx)]
+        y = ops.ssd_diag(*leaves, impl=impl)
+        outs[impl] = (y, *torch.autograd.grad(y, leaves, gy))
+    for a, w, what in zip(outs["cuda"], outs["reference"],
+                          ("y", "dcr", "dbr", "dcum", "ddtx")):
+        err = float((a.detach() - w.detach()).abs().max())
+        tol = F32_TOL * max(1.0, float(w.detach().abs().max()))
+        log(f"check ssd_diag op {what:4s} slice shape max|err|={err:.3e} "
+            f"tol={tol:.3e}")
+        if not (err <= tol and bool(torch.isfinite(a).all())):
+            raise AssertionError(f"ssd_diag op {what} disagrees: {err}")
+    SS.reset_launches()
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 4c: the hybrid path
+# ---------------------------------------------------------------------------
+
+
+def hybrid_setting():
+    """Zamba2-1.2B at full width, 18 Mamba2 layers, on the LM's data."""
+    from repro_torch.configs import ZAMBA2_1_2B, HeliosConfig
+    from repro_torch.data.federated import partition_by_topic
+    from repro_torch.data.synthetic import markov_topic_tokens
+    from repro_torch.models import init_params
+    from repro_torch.models.module import tree_leaves
+    cfg = dataclasses.replace(ZAMBA2_1_2B, num_layers=HY_LAYERS)
+    tokens, topics = markov_topic_tokens(256, LM_SEQ, LM_VOCAB, n_topics=8)
+    test_tokens, _ = markov_topic_tokens(16, LM_SEQ, LM_VOCAB, n_topics=8,
+                                         seed=9)
+    parts = partition_by_topic(topics, 4, topics_per_client=2)
+    log(f"hybrid config: {cfg.name} width (d_model {cfg.d_model}, "
+        f"{cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim} SSM heads x "
+        f"{cfg.ssm_head_dim}, state {cfg.ssm_state}, chunk {cfg.ssm_chunk}; "
+        f"shared block {cfg.num_heads} heads, d_ff {cfg.d_ff}, every "
+        f"{cfg.attn_every} layers; vocab {cfg.vocab_size}), depth cut from "
+        f"{ZAMBA2_1_2B.num_layers} to {cfg.num_layers} Mamba2 layers; batch "
+        f"{LM_BATCH} x {LM_SEQ} tokens")
+    t0 = time.perf_counter()
+    init = init_params(cfg, 0, "cpu")        # host copy, reused by every run
+    log(f"hybrid params {sum(v.numel() for v in tree_leaves(init)) / 1e9:.4f}"
+        f" B, drawn in {time.perf_counter() - t0:.1f} s")
+    return cfg, HeliosConfig(mask_block=BLOCK), {"tokens": tokens}, \
+        {"tokens": test_tokens}, parts, init
+
+
+def _reset_all():
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import masked_matmul as K
+    from repro_torch.kernels import ssd_scan as SS
+    for mod in (K, FA, SS):
+        mod.reset_launches()
+
+
+def _all_launches() -> dict:
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import masked_matmul as K
+    from repro_torch.kernels import ssd_scan as SS
+    return {**K.LAUNCHES, **FA.LAUNCHES, **SS.LAUNCHES}
+
+
+def check_hybrid_step(st, params, strag_masks) -> None:
+    """One full-width hybrid training step, kernel path against plain path
+    from the same params and batch: loss and every gradient within 1e-4
+    relative, with a straggler's Eq. 2 masks and with full masks."""
+    from repro_torch.models import hybrid, make_full_masks, transformer
+    from repro_torch.models.module import tree_paths
+    cfg, _, train, _, _, _ = st
+    batch = {"tokens": torch.as_tensor(train["tokens"][:LM_BATCH]).cuda()}
+    for who, masks in (("straggler", strag_masks),
+                       ("capable", make_full_masks(cfg, "cuda"))):
+        out = {}
+        for kernels in ("cuda", "reference"):
+            leaves = dict(tree_paths(params))
+            for v in leaves.values():
+                v.requires_grad_(True)
+            rt = transformer.default_runtime()
+            rt["kernels"], rt["mask_block"] = kernels, BLOCK
+            loss = hybrid.hybrid_loss(params, batch, cfg, rt, masks)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            for v in leaves.values():
+                v.requires_grad_(False)
+            out[kernels] = (float(loss.detach()), dict(zip(leaves, grads)))
+            del grads, loss
+        (la, ga), (lb, gb) = out["cuda"], out["reference"]
+        finite = all(bool(torch.isfinite(v).all()) for v in ga.values())
+        worst, at = max((float((ga[k] - gb[k]).abs().max())
+                         / max(float(gb[k].abs().max()), 1e-30), k)
+                        for k in gb)
+        log(f"hybrid step {who}: loss {la:.7f} vs {lb:.7f}, worst max|grad "
+            f"diff|/max|grad| {worst:.3e} ({at}), all finite {finite}")
+        if not (finite and abs(la - lb) <= F32_TOL * abs(lb)
+                and worst <= F32_TOL):
+            raise AssertionError(f"hybrid {who} step: kernel path disagrees "
+                                 f"with the plain path ({worst} at {at})")
+        del out, ga, gb
+        _free()
+
+
+def hybrid_path(st) -> dict:
+    """Helios then syn, two rounds each, on the kernel path; every
+    kernel's counter is zeroed before and read after."""
+    from repro_torch.models.module import tree_paths
+    cfg = st[0]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    hel = None
+    for scheme in ("helios", "syn"):
+        run = make_lm_run(scheme, "cuda", st)
+        hist, wall = timed_run(run, 2)
+        log(f"hybrid path {scheme}: 2 rounds in {wall:.3f} s")
+        for row in hist:
+            log("  history", json.dumps(row))
+            if not (math.isfinite(row["loss"]) and math.isfinite(row["ce"])):
+                raise AssertionError(f"hybrid {scheme}: non-finite loss or "
+                                     f"ce in {row}")
+        for k, v in tree_paths(run.global_params):
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"hybrid {scheme}: non-finite {k}")
+        if scheme == "helios":
+            hel = run
+        del run
+    launches = _all_launches()
+    log("hybrid path launches", json.dumps(launches))
+    log(f"hybrid path peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    # each local step of each client runs every Mamba2 layer's kernel once
+    per_round = cfg.num_layers * 2 * 4
+    want = {"masked_matmul": 0, "masked_matmul_dk": 0, "flash_attention": 0,
+            "ssd_diag": 4 * per_round}
+    if launches != want:
+        raise AssertionError(f"hybrid path launches {launches}, want {want} "
+                             f"({per_round} ssd_diag a round; the shared "
+                             f"block takes no kernel, as in the reference)")
+    strag = [r for c, r in zip(hel.clients, hel.history[-1]["ratios"])
+             if c.is_straggler]
+    if not strag or max(strag) >= 1.0:
+        raise AssertionError(f"hybrid helios straggler ratios not below 1: "
+                             f"{strag}")
+    strag_masks = next(c for c in hel.clients
+                       if c.is_straggler).helios_state["masks"]
+    params = hel.global_params
+    del hel
+    _free()
+    check_hybrid_step(st, params, strag_masks)
+    del params
+    _free()
+    # two rounds of one local step, kernel path against plain path, beside
+    # the plain path's drift under a 2^-23 nudge of its initial weights
+    host, hists = {}, {}
+    for name, kernels, nudge in (("cuda", "cuda", 0.0),
+                                 ("plain", "reference", 0.0),
+                                 ("nudged", "reference", 2.0 ** -23)):
+        run = make_lm_run("helios", kernels, st, local_steps=1, nudge=nudge)
+        hists[name], _ = timed_run(run, 2)
+        host[name] = _host_params(run)
+        del run
+        _free()
+    diff = _host_diff(host["cuda"], host["plain"])
+    log(f"hybrid helios 2 rounds x 1 local step, lr 0.05: max|param diff| "
+        f"kernel vs plain {diff:.3e}, plain vs nudged plain "
+        f"{_host_diff(host['plain'], host['nudged']):.3e}")
+    del host
+    if not diff <= 1e-4:
+        raise AssertionError(f"hybrid kernel path drifts from the plain "
+                             f"path: {diff}")
+    for x, y in zip(hists["cuda"], hists["plain"]):
+        for key in ("cycle", "time", "volumes", "ratios"):
+            if x[key] != y[key]:
+                raise AssertionError(f"hybrid history {key} differs: "
+                                     f"{x[key]} vs {y[key]}")
+        if abs(x["ce"] - y["ce"]) > 1e-4 or abs(x["loss"] - y["loss"]) > 1e-4:
+            raise AssertionError(f"hybrid history ce/loss differ: {x} vs {y}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5c: hybrid timing
+# ---------------------------------------------------------------------------
+
+
+def time_ssd(worst: float, launches: int) -> dict:
+    """The ssd_diag kernel and its plain version at the slice shape, f32.
+    No single PyTorch call computes this function."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as SS
+    b, nc, L, ds, nh, hd = SSD_CASES[0]
+    g = torch.Generator(device="cuda").manual_seed(6)
+    sets = [_ssd_inputs(b, nc, L, ds, nh, hd, torch.float32, g, True)
+            for _ in range(3)]               # 3 x 36 MB: more than the L2
+    ms = _time_ms(SS.ssd_diag, sets)
+    plain_ms = _time_ms(ref.ssd_diag_ref, sets)
+    pairs = L * (L + 1) // 2                 # (l, m) pairs with m <= l
+    # C·Bᵀ once per (batch, chunk): it has no head axis; the scaled
+    # product once per head.  (The kernel recomputes C·Bᵀ for every head:
+    # 2·pairs·(ds + hd)·b·nc·nh, the ops-bound 0.064 ms at this shape.)
+    flops = 2 * pairs * b * nc * (ds + nh * hd)
+    nbytes = 4 * (2 * b * nc * L * ds + b * nc * L * nh
+                  + 2 * b * nc * L * nh * hd)   # cr, br, cum, dtx in; y out
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    kernel_flops = 2 * pairs * b * nc * nh * (ds + hd)
+    row = {"name": "ssd_diag", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "replaces": "src/repro/kernels/ssd_scan.py:39",
+           "launches": launches, "max_abs_err": worst, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None}
+    log(f"time ssd_diag (B, nc, L, ds, nh, hd)={SSD_CASES[0]} f32: {ms:.4f} "
+        f"ms (plain {plain_ms:.4f}, bound {row['bound_ms']:.4f} by "
+        f"{row['bound_by']}; bytes {t_bytes:.4f} ms, ops {t_ops:.4f} ms; "
+        f"{kernel_flops / ms / 1e9:.1f} TFLOP/s as the kernel computes)")
+    return row
+
+
+def time_hybrid_round(st) -> None:
+    """One helios hybrid round (no evaluation), kernel path against plain
+    path in turns, then one kernel-path round under the profiler."""
+    walls = {"cuda": [], "reference": []}
+    for kernels in ("cuda", "reference", "reference", "cuda"):
+        run = make_lm_run("helios", kernels, st)
+        timed_run(run, 1, eval_every=0)                  # warm-up round
+        _, wall = timed_run(run, 1, eval_every=0)
+        walls[kernels].append(wall)
+        if kernels == "cuda" and len(walls["cuda"]) == 2:
+            profile_round(run, "helios hybrid round")
+        del run
+        _free()
+    log("hybrid round wall s helios (1 round after a warm-up round): "
+        + json.dumps(walls))
+
+
 def _device_us(e) -> float:
     """Self device time of a profiler row (the attribute was renamed)."""
     t = getattr(e, "self_device_time_total", None)
@@ -741,7 +1046,7 @@ def main() -> int:
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    build.build(["masked_matmul", "flash_attention"])
+    build.build(["masked_matmul", "flash_attention", "ssd_scan"])
     log(f"built kernels in {time.perf_counter() - t0:.1f} s")
     for name, text in build.BUILD_LOG.items():
         for ln in text.splitlines():
@@ -762,6 +1067,14 @@ def main() -> int:
     kernels.append(time_flash(flash_worst, lm_launches["flash_attention"]))
     time_lm_mlp()
     time_lm_round(lm_st)
+    del lm_st
+    _free()
+
+    ssd_worst = check_ssd()
+    hy_st = hybrid_setting()
+    hy_launches = hybrid_path(hy_st)
+    kernels.append(time_ssd(ssd_worst, hy_launches["ssd_diag"]))
+    time_hybrid_round(hy_st)
 
     log(json.dumps({"kernels": kernels}))
     log(line)

@@ -1,7 +1,8 @@
 # repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
 """Configuration dataclasses for the PyTorch port (the fields its slices read).
 
-* :class:`ModelConfig`  — architecture of a paper-testbed CNN or a dense LM.
+* :class:`ModelConfig`  — architecture of a paper-testbed CNN, a dense LM or
+  the Mamba2 + shared-attention hybrid.
 * :class:`HeliosConfig` — the paper's soft-training knobs (Sections IV-VI).
 
 Frozen dataclasses, field for field the same names and defaults as the JAX
@@ -19,7 +20,8 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description; ``family`` is ``cnn`` or ``dense``.
+    """Architecture description; ``family`` is ``cnn``, ``dense`` or
+    ``hybrid``.
 
     The LM sizes have no default in the reference; here they default to 0
     so the CNN configs need not name them."""
@@ -39,6 +41,13 @@ class ModelConfig:
     activation: str = "silu"               # silu (SwiGLU) | gelu
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
+
+    # ---- SSM / hybrid (Mamba2, Zamba2) ----
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_chunk: int = 256
+    attn_every: int = 0                    # hybrid: shared attn block period
 
     # ---- CNN (paper testbed) ----
     image_size: int = 0

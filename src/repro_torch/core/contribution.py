@@ -42,7 +42,9 @@ def _reduce_to_units(arr: torch.Tensor, axes: tuple, unit_axis: str,
     except ValueError:
         return None
     red = tuple(i for i in range(arr.dim()) if i not in keep)
-    out = arr.float().abs().sum(dim=red)
+    out = arr.float().abs()
+    if red:                     # sum(dim=()) would reduce over EVERY dim
+        out = out.sum(dim=red)
     return out if stacked else out[None]                  # (1, units)
 
 

@@ -4,8 +4,8 @@
 Everything that varies by model family — the batch dict (images + labels
 or a token stream), the eval metric (accuracy or cross-entropy), per-unit
 cycle scores and parameter-space mask expansion — lives behind an adapter,
-so the engine stays family-blind.  The port has the CNN testbed and the
-dense LM; :func:`make_adapter` dispatches on ``cfg.family``.
+so the engine stays family-blind.  The port has the CNN testbed, the
+dense LM and the hybrid; :func:`make_adapter` dispatches on ``cfg.family``.
 """
 from __future__ import annotations
 
@@ -97,8 +97,10 @@ class CNNAdapter(FamilyAdapter):
 
 
 class TokenLMAdapter(FamilyAdapter):
-    """Token-stream LM (the dense family): axis-driven scores,
-    cross-entropy eval, logical-axes mask expansion."""
+    """Token-stream LM (the dense and hybrid families): axis-driven scores,
+    cross-entropy eval, logical-axes mask expansion.  ``rt`` carries
+    ``kernels`` into the family's loss (the dense MLP and attention, or
+    the hybrid's SSD intra-chunk term)."""
 
     metric_name = "ce"
 
@@ -129,7 +131,8 @@ class TokenLMAdapter(FamilyAdapter):
         return MK.expand_masks(self.axes, unit_masks, params)
 
 
-_ADAPTERS = {"cnn": CNNAdapter, "dense": TokenLMAdapter}
+_ADAPTERS = {"cnn": CNNAdapter, "dense": TokenLMAdapter,
+             "hybrid": TokenLMAdapter}
 
 
 def make_adapter(cfg: ModelConfig, kernels: str, mask_block: int,

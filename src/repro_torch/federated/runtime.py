@@ -102,8 +102,8 @@ class FLRun:
     seed: int = 0
     eval_batch: int = 512              # eval CHUNK size (full set is scored)
     #: soft-training substrate: "reference" (plain masked ops) or "cuda"
-    #: (block-sparse masked-matmul kernels, and flash attention for the
-    #: LM; "pallas" is an alias)
+    #: (block-sparse masked-matmul kernels, flash attention for the LM,
+    #: the SSD intra-chunk kernel for the hybrid; "pallas" is an alias)
     kernels: str = "reference"
     #: kernel skip granularity; 0 follows HeliosConfig.mask_block (128 when
     #: that is 0 too), so selection blocks and kernel blocks agree

@@ -1,6 +1,7 @@
 # repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
 """Differentiable wrappers of the CUDA kernels: the execution seam of
-kernel-backed soft-training (masked matmuls and flash attention).
+kernel-backed soft-training (masked matmuls, flash attention and the SSD
+intra-chunk term).
 
 The model layers call :func:`masked_dense` / :func:`masked_contract` with
 ``impl="reference" | "cuda"`` (``"pallas"`` is an alias of ``"cuda"``, so
@@ -16,7 +17,8 @@ JAX configs carry over) and get the same numbers either way:
 
 :func:`flash_attention` runs the attention kernel forward and, as the
 reference does, differentiates by recomputing the plain attention under
-autograd in its backward (no backward kernel).
+autograd in its backward (no backward kernel).  :func:`ssd_diag` does the
+same for the Mamba2 intra-chunk term (the reference has no VJP for it).
 
 On a CPU tensor the kernel wrappers compute their plain versions, so the
 same autograd structure runs in the CPU tests.  The kernels mask ragged
@@ -33,6 +35,7 @@ from torch.utils.weak import WeakIdKeyDictionary
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import masked_matmul as K
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as SS
 
 #: canonical values of the ``kernels`` / ``impl`` knobs
 CUDA = "cuda"
@@ -247,3 +250,41 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if canonical_impl(impl) == REFERENCE:
         return ref.flash_attention_ref(q, k, v, causal)
     return _FlashAttention.apply(q, k, v, causal)
+
+
+# ---------------------------------------------------------------------------
+# SSD intra-chunk term + recompute backward
+# ---------------------------------------------------------------------------
+
+
+class _SSDDiag(torch.autograd.Function):
+    """Kernel forward; the backward re-evaluates the plain intra-chunk term
+    and differentiates it, so the (L, L, nh) decay tensors live only inside
+    the backward.  The gradient of ``cum`` carries those of dt and A."""
+
+    @staticmethod
+    def forward(ctx, cr, br, cum, dtx):
+        ctx.save_for_backward(cr, br, cum, dtx)
+        return SS.ssd_diag(cr, br, cum, dtx)
+
+    @staticmethod
+    def backward(ctx, dy):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(True)
+                      for t in ctx.saved_tensors]
+            out = ref.ssd_diag_ref(*leaves)
+            return torch.autograd.grad(out, leaves, dy)
+
+
+def ssd_diag(cr: torch.Tensor, br: torch.Tensor, cum: torch.Tensor,
+             dtx: torch.Tensor, *, impl: str = CUDA) -> torch.Tensor:
+    """Mamba2 intra-chunk term, differentiable.  cr, br: (B, nc, L, ds);
+    cum: (B, nc, L, nh); dtx: (B, nc, L, nh, hd) -> (B, nc, L, nh, hd).
+
+    ``impl="cuda"`` runs the kernel forward and the recompute backward;
+    ``"reference"`` is plain autograd through the einsum form.
+    """
+    SS.check_operands(cr, br, cum, dtx)
+    if canonical_impl(impl) == REFERENCE:
+        return ref.ssd_diag_ref(cr, br, cum, dtx)
+    return _SSDDiag.apply(cr, br, cum, dtx)

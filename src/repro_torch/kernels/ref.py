@@ -46,3 +46,28 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = torch.where(mask, s, torch.full((), -1e30, device=s.device))
     p = torch.softmax(s, dim=-1)
     return torch.matmul(p, v.float()).to(q.dtype)
+
+
+def ssd_diag_ref(cr: torch.Tensor, br: torch.Tensor, cum: torch.Tensor,
+                 dtx: torch.Tensor) -> torch.Tensor:
+    """Mamba2 intra-chunk term (the einsum form of the reference's
+    ``ssd_chunked``): ``y[l, p] = Σ_{m≤l} (C_l·B_m) · exp(cum_l − cum_m) ·
+    dtx[m, p]`` per (batch, chunk, head).
+
+    cr, br: (B, nc, L, ds); cum: (B, nc, L, nh); dtx: (B, nc, L, nh, hd)
+    -> (B, nc, L, nh, hd) in dtx's dtype, f32 arithmetic.  The decay is
+    exponentiated on the kept (m ≤ l) entries only: above the diagonal
+    ``cum_l − cum_m`` is positive and can overflow ``exp``, whose ``inf``
+    the reference masks to 0 in the forward but turns into ``0 · inf =
+    NaN`` in the backward.
+    """
+    cum = cum.float()
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # (b,nc,L,L,nh)
+    L = cr.shape[2]
+    tril = torch.ones(L, L, dtype=torch.bool, device=cr.device).tril()
+    decay = torch.exp(seg.masked_fill(~tril[None, None, :, :, None],
+                                      float("-inf")))
+    cb = torch.einsum("bnli,bnmi->bnlm", cr.float(), br.float())
+    scores = cb[..., None] * decay                          # (b,nc,L,L,nh)
+    return torch.einsum("bnlmh,bnmhp->bnlhp", scores,
+                        dtx.float()).to(dtx.dtype)

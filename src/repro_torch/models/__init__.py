@@ -1,4 +1,5 @@
-"""Model API of the port: family dispatch (the paper CNNs and the dense LM)."""
+"""Model API of the port: family dispatch (the paper CNNs, the dense LM and
+the Mamba2 + shared-attention hybrid)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,7 +9,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import cnn, transformer
+from repro_torch.models import cnn, hybrid, transformer
 from repro_torch.models import module as M
 
 
@@ -24,11 +25,14 @@ def build(cfg: ModelConfig) -> ModelAPI:
     if cfg.family == "dense":
         return ModelAPI(cfg, transformer.lm_spec(cfg), transformer.lm_loss,
                         transformer.mask_schema(cfg))
+    if cfg.family == "hybrid":
+        return ModelAPI(cfg, hybrid.hybrid_spec(cfg), hybrid.hybrid_loss,
+                        hybrid.mask_schema(cfg))
     if cfg.family == "cnn":
         return ModelAPI(cfg, cnn.cnn_spec(cfg), cnn.cnn_loss,
                         cnn.cnn_mask_schema(cfg))
-    raise NotImplementedError(f"the port has the cnn and dense families, not "
-                              f"{cfg.family!r}")
+    raise NotImplementedError(f"the port has the cnn, dense and hybrid "
+                              f"families, not {cfg.family!r}")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,

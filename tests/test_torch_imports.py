@@ -47,6 +47,7 @@ def test_port_imports_with_jax_blocked():
         "from repro_torch.models import init_params\n"
         "from repro_torch.configs import ALEXNET, HeliosConfig, reduced\n"
         "import repro_torch.kernels.build, repro_torch.kernels.masked_matmul\n"
+        "import repro_torch.kernels.ssd_scan, repro_torch.models.hybrid\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m, v in "
         "sys.modules.items() if v is not None)\n"
         "print('ok')\n")
