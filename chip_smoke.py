@@ -9,15 +9,17 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    one nvcc per source, all started together;
 3. hold each masked-matmul kernel against its plain PyTorch version at the
    AlexNet path's shapes (fc0/fc1 forward, dx and dw at batch 32, P in
-   {0.25, 0.5, 1.0}, f32 and bf16) and at ragged shapes; ``masked_dense``
-   forward and backward against plain autograd;
+   {0.25, 0.5, 1.0}, f32 and bf16; the batch-32 calls on split-K), at
+   ragged shapes, at the LM's six MLP layouts at full size (P 0.5 and 1.0,
+   on tile128) and at mask blocks 16 (general) and 256 (tile128); every
+   call twice, bit-identical; ``masked_dense`` forward and backward
+   against plain autograd;
 4. the AlexNet path: full-width AlexNet, a 2 + 2 Table-I non-IID fleet,
    ``FLRun(..., kernels="cuda").run_sync(2)`` for helios and then syn, with
-   the kernels' launch counters zeroed before and read after; the helios
-   run is held against a ``kernels="reference"`` run on the card;
-5. time each masked kernel, its plain version and ``torch.matmul`` at the
-   fc0 shapes with CUDA events, beside the least time the card could take,
-   and time whole rounds of the kernel path against the plain path;
+   the kernels' launch counters (per kernel and per configuration) zeroed
+   before and read after; the helios run is held against a
+   ``kernels="reference"`` run on the card;
+5. time whole rounds of the kernel path against the plain path;
 3b. hold the flash-attention kernel against its plain version at the LM
    slice's shape (4, 32, 512, 128) causal, at (2, 8, 300, 64) causal and
    ragged and at (2, 4, 256, 16) full, f32 and bf16, and the autograd op
@@ -27,9 +29,12 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    and then syn on the same fleet over Markov-topic token streams, with
    the three kernels' counters zeroed before and read after; one training
    step and two rounds of one local step held against the plain path;
-5b. time the flash kernel, its plain version and PyTorch's
-   ``scaled_dot_product_attention`` at the slice shape, a masked matmul at
-   the LM's MLP shape, and one helios LM round under the profiler;
+5b. time each masked kernel, its plain version and ``torch.matmul`` on the
+   same views with CUDA events, beside the least time the card could take:
+   the LM's six MLP layouts at P 0.5 and 1.0, AlexNet's fc0 and fc1
+   forward, dx and dw at P 0.5; the flash kernel, its plain version and
+   PyTorch's ``scaled_dot_product_attention`` at the slice shape; one
+   helios LM round against the plain path, and one under the profiler;
 3c. hold the ``ssd_diag`` kernel against its plain version at the hybrid
    slice's shape (B, nc, L, ds, nh, hd) = (4, 2, 256, 64, 64, 64), at the
    ragged (2, 1, 300, 16, 8, 16) and at the reference test's
@@ -80,6 +85,17 @@ LAYERS = {"fc0": (4096, 1024), "fc1": (1024, 512)}
 BATCH = 32
 #: the LM slice: DeepSeek-7B width, depth cut to 2 layers, batch 4 x 512
 LM_LAYERS, LM_BATCH, LM_SEQ, LM_VOCAB = 2, 4, 512, 1024
+#: the LM's masked MLP calls per layer-step, as products (M, K) @ (K, N):
+#: (label, kernel, M, K, N, x layout, w layout), "col" a transposed view;
+#: tokens 2048, d_model 4096, d_ff 11008
+LM_TOKENS, LM_D, LM_FF = LM_BATCH * LM_SEQ, 4096, 11008
+LM_MLP = (("wi/wg fwd", "masked_matmul", LM_TOKENS, LM_D, LM_FF, "row", "row"),
+          ("wi/wg dw", "masked_matmul", LM_D, LM_TOKENS, LM_FF, "col", "row"),
+          ("wo dh", "masked_matmul", LM_TOKENS, LM_D, LM_FF, "row", "col"),
+          ("wo dwT", "masked_matmul", LM_D, LM_TOKENS, LM_FF, "col", "row"),
+          ("wo fwd", "masked_matmul_dk", LM_TOKENS, LM_FF, LM_D, "row", "row"),
+          ("wi/wg dx", "masked_matmul_dk", LM_TOKENS, LM_FF, LM_D, "row",
+           "col"))
 #: the flash kernel's checks: (B, H, S, hd, causal); the first is the slice
 FLASH_CASES = ((LM_BATCH, 32, LM_SEQ, 128, True), (2, 8, 300, 64, True),
                (2, 4, 256, 16, False))
@@ -115,32 +131,77 @@ def _alive(nb: int, p: float, g: torch.Generator) -> torch.Tensor:
     return flags
 
 
-def _case(kind: str, m: int, k: int, n: int, p: float, dtype, g):
-    """Operands of one kernel call in the layout the main path hands over:
-    'fwd' x @ W, 'dx' dy @ Wᵀ (a transposed view), 'dw' xᵀ (a transposed
-    view) @ dy.  Returns (fn, plain, x, w, live, dead columns or None)."""
+def _operands(kernel: str, m: int, k: int, n: int, xl: str, wl: str,
+              p: float, dtype, g, block: int = BLOCK):
+    """Operands of one product y = (M, K) @ (K, N) in the layouts the main
+    path hands over ("col": a transposed view), w scaled by K^-1/2, with
+    round(p·blocks) live mask blocks over N (column kernel) or over K (dk;
+    x's dead columns are zero, as in dy·mask).  Returns (fn, plain, x, w,
+    live, dead columns or None)."""
     from repro_torch.kernels import masked_matmul as K
     from repro_torch.kernels import ref
-    if kind == "fwd":
-        x = torch.randn(m, k, device="cuda", generator=g).to(dtype)
-        w = (torch.randn(k, n, device="cuda", generator=g) / k ** 0.5).to(dtype)
-        live_len = n
-    elif kind == "dx":                          # (M, N) @ (K, N)ᵀ
-        x = torch.randn(m, n, device="cuda", generator=g).to(dtype)
-        w = (torch.randn(k, n, device="cuda", generator=g) / n ** 0.5).to(dtype).t()
-        live_len = n
-    else:                                       # dw: (M, K)ᵀ @ (M, N)
-        x = torch.randn(m, k, device="cuda", generator=g).to(dtype).t()
-        w = (torch.randn(m, n, device="cuda", generator=g) / m ** 0.5).to(dtype)
-        live_len = n
-    alive = _alive(-(-live_len // BLOCK), p, g)
+
+    def mat(rows, cols, layout, div=None):
+        shape = (rows, cols) if layout == "row" else (cols, rows)
+        t = torch.randn(*shape, device="cuda", generator=g)
+        t = (t if div is None else t / div).to(dtype)
+        return t if layout == "row" else t.t()
+
+    x = mat(m, k, xl)
+    w = mat(k, n, wl, k ** 0.5)
+    dk = kernel == "masked_matmul_dk"
+    length = k if dk else n
+    alive = _alive(-(-length // block), p, g)
     live = K.live_blocks(alive)
-    if kind == "dx":
-        col = alive.repeat_interleave(BLOCK)[:live_len]
+    col = alive.repeat_interleave(block)[:length]
+    if dk:
         x = x * col.to(dtype)[None, :]          # dy·mask: dead K entries are 0
         return K.masked_matmul_dk, ref.masked_matmul_dk_ref, x, w, live, None
-    dead = alive.repeat_interleave(BLOCK)[:live_len] == 0
-    return K.masked_matmul, ref.masked_matmul_ref, x, w, live, dead
+    return K.masked_matmul, ref.masked_matmul_ref, x, w, live, col == 0
+
+
+#: a layer's calls as products: 'fwd' x @ W, 'dx' dy @ Wᵀ (a transposed
+#: view; the dk kernel), 'dw' xᵀ (a transposed view) @ dy
+LAYER_CALLS = {"fwd": lambda m, k, n: ("masked_matmul", m, k, n, "row", "row"),
+               "dx": lambda m, k, n: ("masked_matmul_dk", m, n, k, "row", "col"),
+               "dw": lambda m, k, n: ("masked_matmul", k, m, n, "col", "row")}
+
+
+def _case(kind: str, m: int, k: int, n: int, p: float, dtype, g,
+          block: int = BLOCK):
+    """One call of a layer (M, K) -> (M, N) in the layout the main path
+    hands over: 'fwd', 'dx' or 'dw' (LAYER_CALLS)."""
+    return _operands(*LAYER_CALLS[kind](m, k, n), p, dtype, g, block)
+
+
+def _check_call(label: str, fn, plain, x, w, live, dead, block: int,
+                dt) -> tuple:
+    """One kernel call against its plain version: max abs error within
+    1e-4 (f32) or 2e-2 (bf16) of the output's scale, dead columns exactly
+    zero, and a second call bit-identical to the first.  Returns (error,
+    the configuration the wrapper's plan picked)."""
+    from repro_torch.kernels import masked_matmul as K
+    name = fn.__name__
+    p = K.plan(name, x.shape[0], w.shape[1], x.shape[1], live.numel(), block,
+               x, w)
+    y = fn(x, w, live, block)
+    again = fn(x, w, live, block)
+    want = plain(x.float(), w.float(), live, block)
+    torch.cuda.synchronize()
+    err = float((y.float() - want).abs().max())
+    tol = (F32_TOL if dt == torch.float32 else BF16_TOL) * \
+        float(want.abs().max())
+    zero_ok = dead is None or bool((y[:, dead] == 0).all())
+    same = torch.equal(y, again)
+    log(f"check {name:17s} {label} {str(dt)[6:]:8s} [{p.config} S={p.splits}"
+        f" grid={p.grid}] max|err|={err:.3e} tol={tol:.3e} "
+        f"dead-zero={zero_ok} repeat-identical={same}")
+    if not (err <= tol and zero_ok and same and math.isfinite(err)):
+        raise AssertionError(f"{name} {label} disagrees with its plain "
+                             f"version: err {err} > tol {tol}, dead columns "
+                             f"not zero ({zero_ok}) or a repeat differs "
+                             f"({same})")
+    return err, p.config
 
 
 def check_kernels() -> dict:
@@ -159,23 +220,36 @@ def check_kernels() -> dict:
                                    (1, 4096, 1000, 0.3))]
     for kind, m, k, n, p, dt, main in cases:
         fn, plain, x, w, live, dead = _case(kind, m, k, n, p, dt, g)
-        y = fn(x, w, live, BLOCK)
-        want = plain(x.float(), w.float(), live, BLOCK)
-        torch.cuda.synchronize()
-        err = float((y.float() - want).abs().max())
-        scale = float(want.abs().max())
-        tol = (F32_TOL if dt == torch.float32 else BF16_TOL) * scale
-        name = "masked_matmul_dk" if kind == "dx" else "masked_matmul"
-        zero_ok = dead is None or bool((y[:, dead] == 0).all())
-        log(f"check {name:17s} {kind} m={m} k={k} n={n} P={p} "
-            f"{str(dt)[6:]:8s} max|err|={err:.3e} tol={tol:.3e} "
-            f"dead-zero={zero_ok}")
-        if not (err <= tol and zero_ok and math.isfinite(err)):
-            raise AssertionError(f"{name} {kind} disagrees with its plain "
-                                 f"version: err {err} > tol {tol} or dead "
-                                 f"columns not zero ({zero_ok})")
+        err, config = _check_call(f"{kind} m={m} k={k} n={n} P={p}", fn,
+                                  plain, x, w, live, dead, BLOCK, dt)
+        if main and kind != "dw" and config != "splitk":
+            raise AssertionError(f"{kind} at batch {m} took {config}, not "
+                                 f"splitk")
         if main and dt == torch.float32:
-            worst[name] = max(worst[name], err)
+            worst[fn.__name__] = max(worst[fn.__name__], err)
+    # the LM's MLP calls at full size (tile128), then mask blocks of 16
+    # (general) and 256 (tile128) at a mid shape
+    for label, kernel, m, k, n, xl, wl in LM_MLP:
+        for p in (0.5, 1.0):
+            fn, plain, x, w, live, dead = _operands(kernel, m, k, n, xl, wl,
+                                                    p, torch.float32, g)
+            err, config = _check_call(f"LM {label} M={m} K={k} N={n} P={p}",
+                                      fn, plain, x, w, live, dead, BLOCK,
+                                      torch.float32)
+            if config != "tile128":
+                raise AssertionError(f"LM {label} took {config}, not tile128")
+            worst[kernel] = max(worst[kernel], err)
+            del x, w, dead
+    for block, want in ((16, "general"), (256, "tile128")):
+        for kind in ("fwd", "dx", "dw"):
+            fn, plain, x, w, live, dead = _case(kind, 512, 1024, 1536, 0.5,
+                                                torch.float32, g, block)
+            _, config = _check_call(f"{kind} m=512 k=1024 n=1536 P=0.5 "
+                                    f"block={block}", fn, plain, x, w, live,
+                                    dead, block, torch.float32)
+            if config != want:
+                raise AssertionError(f"block {block} {kind} took {config}, "
+                                     f"not {want}")
     # masked_dense forward + backward against plain autograd, fc0 shapes
     for p in (0.25, 0.5, 1.0):
         k, n = LAYERS["fc0"]
@@ -293,6 +367,16 @@ def main_path(st) -> dict:
             log("  history", json.dumps(row))
     launches = dict(K.LAUNCHES)
     log("main path launches", json.dumps(launches))
+    # per local step: the fc0 and fc1 forwards and dx at batch 32 (split-K)
+    # and the two dw products, M = 4096 and 1024 (tile128)
+    configs = dict(K.CONFIG_LAUNCHES)
+    log("main path launches by configuration", json.dumps(configs))
+    dw = launches["masked_matmul"] // 2
+    want = {"general": 0, "tile128": dw,
+            "splitk": launches["masked_matmul"] - dw
+            + launches["masked_matmul_dk"]}
+    if configs != want:
+        raise AssertionError(f"AlexNet configurations {configs}, want {want}")
     for scheme, run in runs.items():
         for k, v in run.global_params.items():
             if not bool(torch.isfinite(v).all()):
@@ -359,51 +443,120 @@ def _time_ms(fn, sets, reps: int = 3) -> float:
     return start.elapsed_time(end) / n
 
 
-def time_kernels(worst: dict, launches: dict, lm_launches: dict) -> list:
-    """The masked kernels at the AlexNet fc0 shapes; ``launches`` counts
-    both paths' runs (each path's count is in ``launches_by_path``)."""
-    from repro_torch.kernels import masked_matmul as K
-    from repro_torch.kernels import ref
-    k, n = LAYERS["fc0"]
-    m, p = BATCH, 0.5
-    g = torch.Generator(device="cuda").manual_seed(1)
-    out = []
-    for name, kind in (("masked_matmul", "fwd"), ("masked_matmul_dk", "dx")):
-        sets, dense = [], []
-        for _ in range(8):                       # 8 x 16.8 MB of weights
-            fn, plain, x, w, live, _ = _case(kind, m, k, n, p,
+def _bound(kernel: str, m: int, k: int, n: int, live_len: int) -> tuple:
+    """(bound ms, "bytes" or "operations", FLOP) of one f32 product with
+    ``live_len`` live columns (column kernel: x read whole, the live w
+    columns, y written whole) or live contraction rows (dk: the live x
+    columns and w rows, y written whole)."""
+    if kernel == "masked_matmul":
+        nbytes = 4 * (m * k + k * live_len + m * n)
+        flops = 2 * m * k * live_len
+    else:
+        nbytes = 4 * (m * live_len + live_len * n + m * n)
+        flops = 2 * m * live_len * n
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), flops
+
+
+def _device_ms(fn, sets, reps: int = 3) -> float:
+    """Device time per call without the host's share (at batch 32 the
+    Python wrappers take longer to enqueue a call than the card to run it):
+    the card first sleeps while the host enqueues every call, then CUDA
+    events time the calls back to back.  The sleep doubles until it
+    outlasts the enqueueing (a call that waits for the device never lets
+    it: that fails)."""
+    for s in sets[:4]:
+        fn(*s)
+    torch.cuda.synchronize()
+    cycles = 20_000_000
+    for _ in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(cycles)
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            for s in sets:
+                fn(*s)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        if enqueue_ms < ev[0].elapsed_time(ev[1]):
+            return ev[1].elapsed_time(ev[2]) / (reps * len(sets))
+        cycles *= 2
+    raise AssertionError(f"{getattr(fn, '__name__', fn)}: enqueueing "
+                         f"{reps * len(sets)} calls took {enqueue_ms:.1f} ms,"
+                         f" longer than the device's sleep")
+
+
+def _time_call(label: str, kernel: str, m: int, k: int, n: int, xl: str,
+               wl: str, p: float, g, n_sets: int) -> dict:
+    """The kernel, its plain version and ``torch.matmul`` on the same views
+    (the dense product, P = 1) over ``n_sets`` rotating operand sets: device
+    time per call (``ms``, ``library_ms``) and CUDA-event time over calls as
+    the host issues them, its enqueueing included (``wall_ms``,
+    ``library_wall_ms``, ``plain_ms``)."""
+    sets, dense = [], []
+    for _ in range(n_sets):
+        fn, plain, x, w, live, _ = _operands(kernel, m, k, n, xl, wl, p,
                                              torch.float32, g)
-            sets.append((x, w, live, BLOCK))
-            dense.append((x, w))
-        n_live = int(live.numel())
-        ms = _time_ms(fn, sets)
-        plain_ms = _time_ms(plain, sets)
-        lib_ms = _time_ms(torch.matmul, dense)
-        if kind == "fwd":     # x read whole, live W columns, y written whole
-            live_cols = min(n_live * BLOCK, n)
-            nbytes = 4 * (m * k + k * live_cols + m * n)
-            flops = 2 * m * k * live_cols
-        else:                 # live dy columns, live Wᵀ rows, dx written whole
-            live_k = min(n_live * BLOCK, n)
-            nbytes = 4 * (m * live_k + live_k * k + m * k)
-            flops = 2 * m * live_k * k
-        t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
-        row = {"name": name, "route": "cuda",
-               "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
-               "replaces": "src/repro/kernels/masked_matmul.py:"
-                           + ("87" if kind == "fwd" else "103"),
-               "launches": launches[name] + lm_launches[name],
-               "launches_by_path": {"alexnet": launches[name],
-                                    "lm": lm_launches[name]},
-               "max_abs_err": worst[name],
-               "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": lib_ms}
-        log(f"time {name} fc0 {kind} M={m} K={k} N={n} P={p}: {ms:.4f} ms "
-            f"(plain {plain_ms:.4f}, torch.matmul P=1 {lib_ms:.4f}, bound "
-            f"{row['bound_ms']:.4f} by {row['bound_by']})")
-        out.append(row)
+        sets.append((x, w, live, BLOCK))
+        dense.append((x, w))
+    # the plain version waits for the device (its mask's repeat_interleave
+    # reads a size back), so only its event time is taken
+    t = {"ms": _device_ms(fn, sets), "wall_ms": _time_ms(fn, sets),
+         "plain_ms": _time_ms(plain, sets),
+         "library_ms": _device_ms(torch.matmul, dense),
+         "library_wall_ms": _time_ms(torch.matmul, dense)}
+    length = k if kernel == "masked_matmul_dk" else n
+    bound_ms, by, flops = _bound(kernel, m, k, n,
+                                 min(int(live.numel()) * BLOCK, length))
+    log(f"time {kernel} {label} M={m} K={k} N={n} x {xl} w {wl} P={p}: "
+        f"device {t['ms']:.4f} ms (torch.matmul P=1 same views "
+        f"{t['library_ms']:.4f}); as issued {t['wall_ms']:.4f} (torch.matmul "
+        f"{t['library_wall_ms']:.4f}, plain {t['plain_ms']:.4f}); bound "
+        f"{bound_ms:.4f} by {by}; "
+        f"{flops / t['ms'] / 1e9:.1f} TFLOP/s; faster than torch.matmul: "
+        f"device {'yes' if t['ms'] < t['library_ms'] else 'no'}, wall "
+        f"{'yes' if t['wall_ms'] < t['library_wall_ms'] else 'no'}")
+    return {**t, "bound_ms": bound_ms, "bound_by": by}
+
+
+def time_kernels(worst: dict, launches: dict, lm_launches: dict,
+                 lm_times: dict) -> list:
+    """The masked kernels at AlexNet's fc0 and fc1 shapes, P = 0.5 (fc0
+    forward and dx are the rows' own numbers), beside the LM's MLP times;
+    ``launches`` counts both paths' runs (each path's count is in
+    ``launches_by_path``)."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    times = {"masked_matmul": {}, "masked_matmul_dk": {}}
+    for layer, (k, n) in LAYERS.items():
+        for kind in ("fwd", "dx", "dw"):
+            call = LAYER_CALLS[kind](BATCH, k, n)
+            # rotating sets that together pass the 50 MB L2, so each call
+            # reads its operands from device memory
+            per_set = 4 * (BATCH * k + k * n + BATCH * n)
+            times[call[0]][f"{layer} {kind}"] = _time_call(
+                f"{layer} {kind}", *call, 0.5, g,
+                max(8, -(-100_000_000 // per_set)))
+    out = []
+    for name, main in (("masked_matmul", "fc0 fwd"),
+                       ("masked_matmul_dk", "fc0 dx")):
+        t = times[name][main]
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
+                    "replaces": "src/repro/kernels/masked_matmul.py:"
+                                + ("87" if name == "masked_matmul" else "103"),
+                    "launches": launches[name] + lm_launches[name],
+                    "launches_by_path": {"alexnet": launches[name],
+                                         "lm": lm_launches[name]},
+                    "max_abs_err": worst[name],
+                    "ms": t["ms"], "plain_ms": t["plain_ms"],
+                    "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                    "library_ms": t["library_ms"], "wall_ms": t["wall_ms"],
+                    "library_wall_ms": t["library_wall_ms"],
+                    "alexnet": times[name], "lm": lm_times[name]})
     return out
 
 
@@ -436,6 +589,11 @@ def profile_round(run, label: str) -> None:
         raise AssertionError(f"profile {label}: no device time traced")
     log(f"profile one {label}: wall {wall * 1e3:.3f} ms, device busy "
         f"{busy_ms:.3f} ms, idle share {1 - busy_ms / (wall * 1e3):.4f}")
+    masked = [e for e in rows if "masked_mm" in e.key
+              or "splitk_reduce" in e.key]
+    if masked:
+        log(f"  masked kernels: device {sum(map(_device_us, masked)) / 1e3:.3f}"
+            f" ms over {sum(e.count for e in masked)} kernel calls")
     for e in sorted(rows, key=_device_us, reverse=True)[:12]:
         log(f"  device {_device_us(e) / 1e3:9.3f} ms  calls {e.count:5d}  "
             f"{e.key[:90]}")
@@ -615,6 +773,11 @@ def lm_path(st) -> dict:
         del run
     launches = {**K.LAUNCHES, **FA.LAUNCHES}
     log("LM path launches", json.dumps(launches))
+    configs = dict(K.CONFIG_LAUNCHES)
+    log("LM path launches by configuration", json.dumps(configs))
+    masked = K.LAUNCHES["masked_matmul"] + K.LAUNCHES["masked_matmul_dk"]
+    if configs != {"general": 0, "tile128": masked, "splitk": 0}:
+        raise AssertionError(f"LM masked calls not all on tile128: {configs}")
     log(f"LM path peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     if min(launches.values()) <= 0:
@@ -703,24 +866,18 @@ def time_flash(worst: float, launches: int) -> dict:
     return row
 
 
-def time_lm_mlp() -> None:
-    """The masked-matmul pair at the LM's MLP shapes (tokens 2048, d 4096,
-    d_ff 11008, P = 0.5), beside the plain version and torch.matmul."""
-    m, k, n, p = LM_BATCH * LM_SEQ, 4096, 11008, 0.5
+def time_lm_mlp() -> dict:
+    """The masked-matmul pair in each of the LM MLP's six layouts at P 0.5
+    and 1.0, f32; returns the P = 0.5 times per kernel and layout."""
     g = torch.Generator(device="cuda").manual_seed(4)
-    for name, kind in (("masked_matmul", "fwd"), ("masked_matmul_dk", "dx")):
-        fn, plain, x, w, live, _ = _case(kind, m, k, n, p, torch.float32, g)
-        sets = [(x, w, live, BLOCK)]
-        ms = _time_ms(fn, sets)
-        plain_ms = _time_ms(plain, sets)
-        lib_ms = _time_ms(torch.matmul, [(x, w)])
-        live_n = min(int(live.numel()) * BLOCK, n)
-        flops = 2 * m * k * live_n
-        log(f"time {name} LM mlp {kind} M={m} K={k} N={n} P={p}: {ms:.4f} "
-            f"ms (plain {plain_ms:.4f}, torch.matmul P=1 {lib_ms:.4f}, bound "
-            f"{flops / PEAK_F32 * 1e3:.4f} by operations; "
-            f"{flops / ms / 1e9:.1f} TFLOP/s)")
-        del x, w
+    out = {"masked_matmul": {}, "masked_matmul_dk": {}}
+    for label, kernel, m, k, n, xl, wl in LM_MLP:
+        for p in (0.5, 1.0):
+            t = _time_call(f"LM {label}", kernel, m, k, n, xl, wl, p, g, 1)
+            if p == 0.5:
+                out[kernel][label] = t
+            _free()
+    return out
 
 
 def time_lm_round(st) -> None:
@@ -1063,9 +1220,9 @@ def main() -> int:
     flash_worst = check_flash()
     lm_st = lm_setting()
     lm_launches = lm_path(lm_st)
-    kernels = time_kernels(worst, launches, lm_launches)
+    lm_times = time_lm_mlp()
+    kernels = time_kernels(worst, launches, lm_launches, lm_times)
     kernels.append(time_flash(flash_worst, lm_launches["flash_attention"]))
-    time_lm_mlp()
     time_lm_round(lm_st)
     del lm_st
     _free()

@@ -11,15 +11,17 @@
 
 Both take the mask as ``live``, the ascending int32 indices of the live
 blocks (:func:`live_blocks` builds it from per-block flags), plus the mask
-block width.  On a CUDA tensor a wrapper checks its operands, allocates a
-zero-filled output, launches its kernel on the current stream and raises on
-a failed launch; on a CPU tensor it computes the plain version in
-``kernels/ref.py``.  ``LAUNCHES`` counts kernel launches, nothing else.
+block width.  On a CUDA tensor a wrapper checks its operands, lets
+:func:`plan` pick a configuration from the shapes, allocates the output
+(and the split-K workspace), launches on the current stream and raises on a
+failed launch; on a CPU tensor it computes the plain version in
+``kernels/ref.py``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,23 +29,107 @@ from repro_torch.kernels import build, ref
 
 SOURCE = "masked_matmul"
 
-#: kernel launches per wrapper (plain CPU calls are not counted)
+#: configurations of the kernel pair; the index is the C side's config id
+CONFIGS = ("general", "tile128", "splitk")
+#: (rows, columns, contraction depth) of one output tile and stage
+TILES = {"general": (32, 64, 32), "tile128": (128, 128, 16),
+         "splitk": (32, 64, 32)}
+#: SMs of an H100 SXM; split-K fills up to two waves of them
+SMS = 132
+#: least contraction a split of the column kernel walks
+MIN_SPLIT_K = 128
+
+#: wrapper calls that ran on the card, one per call whatever number of
+#: kernels (a split-K call launches two) it took; CPU calls are not counted
 LAUNCHES: Dict[str, int] = {"masked_matmul": 0, "masked_matmul_dk": 0}
+#: the same calls, by the configuration :func:`plan` picked
+CONFIG_LAUNCHES: Dict[str, int] = {c: 0 for c in CONFIGS}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-             + [ctypes.c_longlong] * 7 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+             + [ctypes.c_longlong] * 7 + [ctypes.c_int] * 3
+             + [ctypes.c_longlong, ctypes.c_void_p])
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, CONFIG_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def live_blocks(block_alive: torch.Tensor) -> torch.Tensor:
     """Per-block 0/1 flags -> int32 indices of the live blocks (ascending).
     On a CUDA tensor this waits for the flags: the count sets the grid."""
     return torch.nonzero(block_alive).flatten().to(torch.int32)
+
+
+@dataclass(frozen=True)
+class Plan:
+    """How one call runs: the kernel's grid is (tiles_m, tiles_n, splits).
+
+    ``k_split`` is what one split walks: contraction rows for the column
+    kernel, live blocks of the list for the dk kernel.  ``workspace`` is the
+    (splits, M, N) f32 buffer of the split-K partial sums, or None.
+    """
+    config: str
+    tile: Tuple[int, int, int]
+    splits: int
+    k_split: int
+    grid: Tuple[int, int, int]
+    workspace: Optional[Tuple[int, int, int]]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _vec_ok(t: torch.Tensor) -> bool:
+    """16-byte chunks along the unit-stride dim stay 16-byte aligned: an
+    aligned start and a pitch (the other stride) a multiple of 4 floats."""
+    s0, s1 = t.stride()
+    pitch = s1 if s0 == 1 else s0 if s1 == 1 else 1
+    return pitch % 4 == 0 and t.data_ptr() % 16 == 0
+
+
+def plan(kind: str, m: int, n: int, k: int, n_live: int, block: int,
+         x: torch.Tensor, w: torch.Tensor) -> Plan:
+    """The configuration of one call, from its shapes alone (no CUDA call).
+
+    ``kind`` is ``"masked_matmul"`` (column kernel) or
+    ``"masked_matmul_dk"``.  ``tile128`` for f32 at M >= 128 with a mask
+    block that is a multiple of 128 and 16-byte aligned operands;
+    ``splitk`` at M < 128, with as many splits S as keep at least 128
+    contraction rows (dk: one live block) a split, up to two waves of
+    blocks (S may be 1, and then no workspace); ``general`` otherwise.
+    Raises ValueError when the grid exceeds CUDA's limits.
+    """
+    skip_k = kind == "masked_matmul_dk"
+    if m < 128:
+        config = "splitk"
+    elif (x.dtype == torch.float32 and w.dtype == torch.float32
+          and block % 128 == 0 and max(m, n, k) < 2 ** 31
+          and _vec_ok(x) and _vec_ok(w)):
+        config = "tile128"
+    else:
+        config = "general"
+    bm, bn, bk = TILES[config]
+    tiles_m = _cdiv(m, bm)
+    tiles_n = _cdiv(n, bn) if skip_k else n_live * _cdiv(block, bn)
+    depth = n_live if skip_k else k           # what the splits partition
+    splits = 1
+    if config == "splitk":
+        most = n_live if skip_k else k // MIN_SPLIT_K
+        splits = max(1, min(2 * SMS // (tiles_m * tiles_n), most))
+    k_split = _cdiv(depth, splits)
+    if not skip_k:
+        k_split = _cdiv(k_split, bk) * bk     # whole stages a split
+    splits = _cdiv(depth, k_split)
+    if tiles_n > 65535 or splits > 65535 or tiles_m > 2 ** 31 - 1:
+        raise ValueError(f"{kind}: grid ({tiles_m}, {tiles_n}, {splits}) "
+                         "exceeds CUDA's limits (y and z <= 65535)")
+    return Plan(config, (bm, bn, bk), splits, k_split,
+                (tiles_m, tiles_n, splits),
+                (splits, m, n) if splits > 1 else None)
 
 
 def _fn(name: str):
@@ -84,17 +170,25 @@ def _launch(name: str, x: torch.Tensor, w: torch.Tensor, live: torch.Tensor,
     if m == 0 or n == 0 or k == 0 or live.numel() == 0:
         # nothing live: the zeros are the answer
         return torch.zeros((m, n), dtype=x.dtype, device=x.device)
-    # the column kernel writes live tiles only, so its dead columns come
-    # from the zero fill; the dk kernel writes every element
-    alloc = torch.zeros if name == "masked_matmul" else torch.empty
+    p = plan(name, m, n, k, live.numel(), block, x, w)
+    # the column kernel's tiles write live columns only, so its dead columns
+    # come from the zero fill; the dk kernel and the split-K reduce write
+    # every element
+    alloc = torch.zeros if name == "masked_matmul" and p.workspace is None \
+        else torch.empty
     y = alloc((m, n), dtype=x.dtype, device=x.device)
+    ws = None if p.workspace is None else \
+        torch.empty(p.workspace, dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _fn(name)(_DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), y.data_ptr(),
-                   live.data_ptr(), live.numel(), block, m, n, k,
-                   x.stride(0), x.stride(1), w.stride(0), w.stride(1), stream)
+    rc = _fn(name)(_DTYPES[x.dtype], CONFIGS.index(p.config), x.data_ptr(),
+                   w.data_ptr(), y.data_ptr(),
+                   None if ws is None else ws.data_ptr(), live.data_ptr(),
+                   live.numel(), block, m, n, k, x.stride(0), x.stride(1),
+                   w.stride(0), w.stride(1), *p.grid, p.k_split, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
     LAUNCHES[name] += 1
+    CONFIG_LAUNCHES[p.config] += 1
     return y
 
 
