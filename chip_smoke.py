@@ -22,36 +22,43 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
 5. time whole rounds of the kernel path against the plain path;
 3b. hold the flash-attention kernel against its plain version at the LM
    slice's shape (4, 32, 512, 128) causal, at (2, 8, 300, 64) causal and
-   ragged and at (2, 4, 256, 16) full, f32 and bf16, and the autograd op
-   (kernel forward, recompute backward) against plain autograd;
+   ragged and at (2, 4, 256, 16) full, f32 and bf16, on 16-byte copies,
+   and at (2, 8, 300, 64) off the 16-byte grid (element copies); every
+   call twice, bit-identical; the autograd op (kernel forward, recompute
+   backward) against plain autograd;
 4b. the LM path: the dense LM at DeepSeek-7B width with its depth cut from
    30 to 2 layers, ``FLRun(..., kernels="cuda").run_sync(2)`` for helios
    and then syn on the same fleet over Markov-topic token streams, with
-   the three kernels' counters zeroed before and read after; one training
-   step and two rounds of one local step held against the plain path;
+   the three kernels' counters zeroed before and read after (every flash
+   call on 16-byte copies); one training step and two rounds of one local
+   step held against the plain path;
 5b. time each masked kernel, its plain version and ``torch.matmul`` on the
    same views with CUDA events, beside the least time the card could take:
    the LM's six MLP layouts at P 0.5 and 1.0, AlexNet's fc0 and fc1
-   forward, dx and dw at P 0.5; the flash kernel, its plain version and
-   PyTorch's ``scaled_dot_product_attention`` at the slice shape; one
-   helios LM round against the plain path, and one under the profiler;
+   forward, dx and dw at P 0.5; the flash kernel and PyTorch's
+   ``scaled_dot_product_attention`` by device time, and its plain version,
+   at the slice shape, beside the bounds on the kernel's 3xTF32 route and
+   on f32 FMA, and the recompute backward's time; one helios LM round
+   against the plain path, and one under the profiler;
 3c. hold the ``ssd_diag`` kernel against its plain version at the hybrid
    slice's shape (B, nc, L, ds, nh, hd) = (4, 2, 256, 64, 64, 64), at the
    ragged (2, 1, 300, 16, 8, 16) and at the reference test's
    (1, 2, 64, 16, 2, 32), f32 and bf16, and at the slice shape with the
    model's own decay (dt ≈ 0.7, A = -1), where the reference's decay
-   overflows; the autograd op (kernel forward, recompute backward) against
-   plain autograd;
+   overflows, on 16-byte copies, and the ragged case off the 16-byte grid;
+   every call twice, bit-identical; the autograd op (kernel forward,
+   recompute backward) against plain autograd;
 4c. the hybrid path: Zamba2-1.2B at full width with its depth cut from 38
    to 18 Mamba2 layers (three invocations of the shared block),
    ``FLRun(..., kernels="cuda").run_sync(2)`` for helios and then syn on
    the LM's fleet and data, with every kernel's counter zeroed before and
-   read after (144 ``ssd_diag`` launches a round, no other kernel); every
-   loss and parameter finite; one training step and two rounds of one
-   local step held against the plain path;
-5c. time the ``ssd_diag`` kernel and its plain version at the slice shape
-   beside its bound, and one helios hybrid round, kernel path against
-   plain path, then under the profiler.
+   read after (144 ``ssd_diag`` launches a round, all on 16-byte copies,
+   no other kernel); every loss and parameter finite; one training step
+   and two rounds of one local step held against the plain path;
+5c. time ``ssd_diag`` by device time and its
+   plain version at the slice shape beside both bounds, and the recompute
+   backward; one helios hybrid round, kernel path against plain path, then
+   under the profiler.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and before that the
@@ -74,10 +81,13 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and f32 FLOP/s without
-#: tensor cores (the kernels run IEEE f32 FMA; no TF32)
+#: H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s on the CUDA
+#: cores (the masked pair runs IEEE f32 FMA) and dense TF32 FLOP/s on the
+#: tensor cores (flash_attention and ssd_diag run three TF32 products per
+#: f32 product, the 3xTF32 split)
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+PEAK_TF32 = 495e12
 BLOCK = 128
 F32_TOL, BF16_TOL = 1e-4, 2e-2
 #: fc0 / fc1 of full-width AlexNet at the main path's batch of 32
@@ -459,6 +469,20 @@ def _bound(kernel: str, m: int, k: int, n: int, live_len: int) -> tuple:
                                  else "operations"), flops
 
 
+def _bounds(flops: float, nbytes: float) -> dict:
+    """The least time of a function run as 3xTF32 products on the tensor
+    cores (three TF32 products per f32 product; the kernels' route) and
+    as f32 FMA on the CUDA cores, each the larger of its operations and
+    the bytes: ``bound_ms`` / ``bound_by`` for the route, ``bound_f32_ms``
+    beside it."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_tf32, t_f32 = 3 * flops / PEAK_TF32 * 1e3, flops / PEAK_F32 * 1e3
+    return {"bound_ms": max(t_bytes, t_tf32),
+            "bound_by": "bytes" if t_bytes >= t_tf32 else "operations",
+            "bound_f32_ms": max(t_bytes, t_f32), "bytes_ms": t_bytes,
+            "tf32x3_ops_ms": t_tf32, "f32_ops_ms": t_f32}
+
+
 def _device_ms(fn, sets, reps: int = 3) -> float:
     """Device time per call without the host's share (at batch 32 the
     Python wrappers take longer to enqueue a call than the card to run it):
@@ -554,6 +578,7 @@ def time_kernels(worst: dict, launches: dict, lm_launches: dict,
                     "max_abs_err": worst[name],
                     "ms": t["ms"], "plain_ms": t["plain_ms"],
                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                    "bound_f32_ms": t["bound_ms"],
                     "library_ms": t["library_ms"], "wall_ms": t["wall_ms"],
                     "library_wall_ms": t["library_wall_ms"],
                     "alexnet": times[name], "lm": lm_times[name]})
@@ -589,11 +614,14 @@ def profile_round(run, label: str) -> None:
         raise AssertionError(f"profile {label}: no device time traced")
     log(f"profile one {label}: wall {wall * 1e3:.3f} ms, device busy "
         f"{busy_ms:.3f} ms, idle share {1 - busy_ms / (wall * 1e3):.4f}")
-    masked = [e for e in rows if "masked_mm" in e.key
-              or "splitk_reduce" in e.key]
-    if masked:
-        log(f"  masked kernels: device {sum(map(_device_us, masked)) / 1e3:.3f}"
-            f" ms over {sum(e.count for e in masked)} kernel calls")
+    for what, names in (("masked kernels", ("masked_mm", "splitk_reduce")),
+                        ("flash_attention kernel", ("flash_fwd_kernel",)),
+                        ("ssd_diag kernels", ("ssd_cb_kernel",
+                                              "ssd_diag_kernel"))):
+        mine = [e for e in rows if any(n in e.key for n in names)]
+        if mine:
+            log(f"  {what}: device {sum(map(_device_us, mine)) / 1e3:.3f} ms "
+                f"over {sum(e.count for e in mine)} kernel calls")
     for e in sorted(rows, key=_device_us, reverse=True)[:12]:
         log(f"  device {_device_us(e) / 1e3:9.3f} ms  calls {e.count:5d}  "
             f"{e.key[:90]}")
@@ -604,11 +632,12 @@ def profile_round(run, label: str) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _qkv(b: int, h: int, s: int, hd: int, dtype, g):
+def _qkv(b: int, h: int, s: int, hd: int, dtype, g, pad: int = 0):
     """q, k, v as the LM hands them over: (B, S, H, hd) buffers seen as
-    (B, H, S, hd) views."""
-    return [torch.randn(b, s, h, hd, device="cuda", generator=g)
-            .to(dtype).transpose(1, 2) for _ in range(3)]
+    (B, H, S, hd) views; ``pad`` widens each buffer's last dim (hd + 1 puts
+    every row off the 16-byte grid: the kernel's unaligned variant)."""
+    return [torch.randn(b, s, h, hd + pad, device="cuda", generator=g)
+            .to(dtype)[..., :hd].transpose(1, 2) for _ in range(3)]
 
 
 def check_flash() -> float:
@@ -618,22 +647,33 @@ def check_flash() -> float:
     from repro_torch.kernels import ops, ref
     g = torch.Generator(device="cuda").manual_seed(2)
     worst = 0.0
-    for i, (b, h, s, hd, causal) in enumerate(FLASH_CASES):
+    # every case on 16-byte copies, then the second case off the 16-byte
+    # grid (element copies), drawn from a generator of its own
+    cases = [(c, 0, g) for c in FLASH_CASES] + [
+        (FLASH_CASES[1], 1, torch.Generator(device="cuda").manual_seed(12))]
+    for i, ((b, h, s, hd, causal), pad, gen) in enumerate(cases):
         for dt in (torch.float32, torch.bfloat16):
-            q, k, v = _qkv(b, h, s, hd, dt, g)
+            q, k, v = _qkv(b, h, s, hd, dt, gen, pad)
+            before = dict(FA.CONFIG_LAUNCHES)
             y = FA.flash_attention(q, k, v, causal)
+            again = FA.flash_attention(q, k, v, causal)
             want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
                                            causal)
             torch.cuda.synchronize()
             err = float((y.float() - want).abs().max())
             tol = (F32_TOL if dt == torch.float32 else BF16_TOL) * \
                 float(want.abs().max())
+            variant = "unaligned" if pad else "aligned"
+            took = FA.CONFIG_LAUNCHES[variant] - before[variant]
+            same = torch.equal(y, again)
             log(f"check flash_attention B={b} H={h} S={s} hd={hd} "
-                f"causal={causal} {str(dt)[6:]:8s} max|err|={err:.3e} "
-                f"tol={tol:.3e}")
-            if not (err <= tol and math.isfinite(err)):
+                f"causal={causal} {str(dt)[6:]:8s} [{variant}] "
+                f"max|err|={err:.3e} tol={tol:.3e} repeat-identical={same}")
+            if not (err <= tol and math.isfinite(err) and same and took == 2):
                 raise AssertionError(f"flash_attention disagrees with its "
-                                     f"plain version: {err} > {tol}")
+                                     f"plain version: {err} > {tol}, a "
+                                     f"repeat differs ({same}) or the calls "
+                                     f"did not take {variant} ({took} of 2)")
             if i == 0 and dt == torch.float32:
                 worst = err
     # the autograd op at the slice shape: kernel forward + recompute
@@ -778,6 +818,11 @@ def lm_path(st) -> dict:
     masked = K.LAUNCHES["masked_matmul"] + K.LAUNCHES["masked_matmul_dk"]
     if configs != {"general": 0, "tile128": masked, "splitk": 0}:
         raise AssertionError(f"LM masked calls not all on tile128: {configs}")
+    flash = dict(FA.CONFIG_LAUNCHES)
+    log("LM path flash_attention launches by copy variant", json.dumps(flash))
+    if flash != {"aligned": FA.LAUNCHES["flash_attention"], "unaligned": 0}:
+        raise AssertionError(f"LM flash calls not all on 16-byte copies: "
+                             f"{flash}")
     log(f"LM path peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     if min(launches.values()) <= 0:
@@ -834,35 +879,68 @@ def lm_path(st) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def time_flash(worst: float, launches: int) -> dict:
+def _bwd_ms(op, sets, n_out_args: int) -> float:
+    """Event time of the autograd op's forward and recompute backward over
+    rotating operand sets, less the forward alone: the backward's share of
+    a call as the host issues it."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    grads = [torch.randn(op(*s).shape, device="cuda", generator=g)
+             for s in sets]
+
+    def step(*args):
+        leaves = [t.detach().requires_grad_(True) for t in args[:n_out_args]]
+        y = op(*leaves)
+        torch.autograd.grad(y, leaves, grads[args[-1]])
+
+    indexed = [(*s, i) for i, s in enumerate(sets)]
+    both = _time_ms(step, indexed)
+    fwd = _time_ms(lambda *a: op(*a[:n_out_args]), indexed)
+    return both - fwd
+
+
+def time_flash(worst: float, launches: int, per_round: int) -> dict:
     """The flash kernel, its plain version and PyTorch's SDPA (a yardstick
-    the port never calls) at the slice shape, f32."""
+    the port never calls) at the slice shape, f32: device time (calls
+    enqueued while the card sleeps) and event time as issued; and the
+    recompute backward of the autograd op, a call and a round."""
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     import torch.nn.functional as F
     b, h, s, hd, causal = FLASH_CASES[0]
     g = torch.Generator(device="cuda").manual_seed(3)
     sets = [tuple(_qkv(b, h, s, hd, torch.float32, g)) for _ in range(3)]
-    ms = _time_ms(lambda q, k, v: FA.flash_attention(q, k, v, causal), sets)
-    plain_ms = _time_ms(lambda q, k, v: ref.flash_attention_ref(q, k, v,
-                                                                causal), sets)
-    lib_ms = _time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal), sets)
+    kern = lambda q, k, v: FA.flash_attention(q, k, v, causal)
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v,
+                                                          is_causal=causal)
+    t = {"ms": _device_ms(kern, sets), "wall_ms": _time_ms(kern, sets),
+         "library_ms": _device_ms(sdpa, sets),
+         "library_wall_ms": _time_ms(sdpa, sets),
+         "plain_ms": _time_ms(lambda q, k, v: ref.flash_attention_ref(
+             q, k, v, causal), sets)}
+    bwd = _bwd_ms(lambda q, k, v: ops.flash_attention(q, k, v,
+                                                      causal=causal),
+                  sets, 3)
     pairs = s * (s + 1) // 2 if causal else s * s   # (query, key) pairs
     flops = 4 * hd * pairs * b * h                  # q·kᵀ and p·v
-    nbytes = 4 * 4 * b * h * s * hd                 # q, k, v read; o written
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    bd = _bounds(flops, 4 * 4 * b * h * s * hd)     # q, k, v read; o written
     row = {"name": "flash_attention", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
            "replaces": "src/repro/kernels/flash_attention.py:70",
-           "launches": launches, "max_abs_err": worst, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": lib_ms}
+           "launches": launches, "max_abs_err": worst, **t,
+           "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+           "bound_f32_ms": bd["bound_f32_ms"],
+           "recompute_bwd_ms": bwd, "recompute_bwd_ms_per_round":
+               bwd * per_round}
     log(f"time flash_attention B={b} H={h} S={s} hd={hd} causal f32: "
-        f"{ms:.4f} ms (plain {plain_ms:.4f}, sdpa {lib_ms:.4f}, bound "
-        f"{row['bound_ms']:.4f} by {row['bound_by']}; "
-        f"{flops / ms / 1e9:.1f} TFLOP/s)")
+        f"device {t['ms']:.4f} ms (sdpa {t['library_ms']:.4f}); as issued "
+        f"{t['wall_ms']:.4f} (sdpa {t['library_wall_ms']:.4f}, plain "
+        f"{t['plain_ms']:.4f}); bound {bd['bound_ms']:.4f} by "
+        f"{bd['bound_by']} on the 3xTF32 route (bytes {bd['bytes_ms']:.4f}, "
+        f"ops {bd['tf32x3_ops_ms']:.4f}), {bd['bound_f32_ms']:.4f} on f32 "
+        f"FMA; {flops / t['ms'] / 1e9:.1f} TFLOP/s; faster than sdpa: "
+        f"{'yes' if t['ms'] < t['library_ms'] else 'no'}; recompute "
+        f"backward {bwd:.4f} ms a call, {bwd * per_round:.3f} ms a round "
+        f"({per_round} calls)")
     return row
 
 
@@ -902,15 +980,19 @@ def time_lm_round(st) -> None:
 # ---------------------------------------------------------------------------
 
 
-def _ssd_inputs(b, nc, L, ds, nh, hd, dtype, g, model_decay=False):
+def _ssd_inputs(b, nc, L, ds, nh, hd, dtype, g, model_decay=False,
+                pad=0):
     """cr, br, dtx ~ N(0, 1) in ``dtype``; a decreasing cumulative
     log-decay in f32: the reference test's (|N| · 0.1 a step) or the
-    model's at initialisation (softplus(N) · A with A = -1)."""
-    cr, br = (torch.randn(b, nc, L, ds, device="cuda", generator=g)
-              .to(dtype) for _ in range(2))
+    model's at initialisation (softplus(N) · A with A = -1).  ``pad``
+    widens the last dim of each buffer (1 puts br's and dtx's rows off the
+    16-byte grid: the kernel's unaligned variant)."""
+    cr, br = (torch.randn(b, nc, L, ds + pad, device="cuda", generator=g)
+              .to(dtype)[..., :ds] for _ in range(2))
     a = torch.randn(b, nc, L, nh, device="cuda", generator=g)
     a = -torch.nn.functional.softplus(a) if model_decay else -a.abs() * 0.1
-    dtx = torch.randn(b, nc, L, nh, hd, device="cuda", generator=g).to(dtype)
+    dtx = torch.randn(b, nc, L, nh, hd + pad, device="cuda",
+                      generator=g).to(dtype)[..., :hd]
     return cr, br, torch.cumsum(a, dim=2), dtx
 
 
@@ -921,24 +1003,37 @@ def check_ssd() -> float:
     from repro_torch.kernels import ssd_scan as SS
     g = torch.Generator(device="cuda").manual_seed(5)
     worst = 0.0
-    cases = [(c, dt, False) for c in SSD_CASES
+    cases = [(c, dt, False, 0, g) for c in SSD_CASES
              for dt in (torch.float32, torch.bfloat16)]
-    cases.append((SSD_CASES[0], torch.float32, True))
-    for i, (shape, dt, model_decay) in enumerate(cases):
-        cr, br, cum, dtx = _ssd_inputs(*shape, dt, g, model_decay)
+    cases.append((SSD_CASES[0], torch.float32, True, 0, g))
+    # the ragged case off the 16-byte grid (element copies), drawn from a
+    # generator of its own
+    g_pad = torch.Generator(device="cuda").manual_seed(15)
+    cases += [(SSD_CASES[1], dt, False, 1, g_pad)
+              for dt in (torch.float32, torch.bfloat16)]
+    for i, (shape, dt, model_decay, pad, gen) in enumerate(cases):
+        cr, br, cum, dtx = _ssd_inputs(*shape, dt, gen, model_decay, pad)
+        before = dict(SS.CONFIG_LAUNCHES)
         y = SS.ssd_diag(cr, br, cum, dtx)
+        again = SS.ssd_diag(cr, br, cum, dtx)
         want = ref.ssd_diag_ref(cr.float(), br.float(), cum, dtx.float())
         torch.cuda.synchronize()
         err = float((y.float() - want).abs().max())
         tol = (F32_TOL if dt == torch.float32 else BF16_TOL) * \
             max(1.0, float(want.abs().max()))
+        variant = "unaligned" if pad else "aligned"
+        took = SS.CONFIG_LAUNCHES[variant] - before[variant]
+        same = torch.equal(y, again)
         log(f"check ssd_diag (B, nc, L, ds, nh, hd)={shape} "
             f"{str(dt)[6:]:8s} {'model decay' if model_decay else ''} "
-            f"max|err|={err:.3e} tol={tol:.3e}")
-        if not (err <= tol and math.isfinite(err)
+            f"[{variant}] max|err|={err:.3e} tol={tol:.3e} "
+            f"repeat-identical={same}")
+        if not (err <= tol and math.isfinite(err) and same and took == 2
                 and bool(torch.isfinite(y).all())):
             raise AssertionError(f"ssd_diag disagrees with its plain "
-                                 f"version: {err} > {tol}")
+                                 f"version: {err} > {tol}, a repeat differs "
+                                 f"({same}) or the calls did not take "
+                                 f"{variant} ({took} of 2)")
         if i == 0:
             worst = err
     # the autograd op at the slice shape, with the model's decay
@@ -1081,6 +1176,12 @@ def hybrid_path(st) -> dict:
         raise AssertionError(f"hybrid path launches {launches}, want {want} "
                              f"({per_round} ssd_diag a round; the shared "
                              f"block takes no kernel, as in the reference)")
+    from repro_torch.kernels import ssd_scan as SS
+    variants = dict(SS.CONFIG_LAUNCHES)
+    log("hybrid path ssd_diag launches by copy variant", json.dumps(variants))
+    if variants != {"aligned": want["ssd_diag"], "unaligned": 0}:
+        raise AssertionError(f"hybrid ssd_diag calls not all on 16-byte "
+                             f"copies: {variants}")
     strag = [r for c, r in zip(hel.clients, hel.history[-1]["ratios"])
              if c.is_straggler]
     if not strag or max(strag) >= 1.0:
@@ -1128,37 +1229,42 @@ def hybrid_path(st) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def time_ssd(worst: float, launches: int) -> dict:
-    """The ssd_diag kernel and its plain version at the slice shape, f32.
-    No single PyTorch call computes this function."""
-    from repro_torch.kernels import ref
+def time_ssd(worst: float, launches: int, per_round: int) -> dict:
+    """The ssd_diag kernel and its plain version at the slice shape, f32:
+    device time (calls enqueued while the card sleeps), event time as
+    issued, and the recompute backward of the autograd op.  No single
+    PyTorch call computes this function."""
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import ssd_scan as SS
     b, nc, L, ds, nh, hd = SSD_CASES[0]
     g = torch.Generator(device="cuda").manual_seed(6)
     sets = [_ssd_inputs(b, nc, L, ds, nh, hd, torch.float32, g, True)
             for _ in range(3)]               # 3 x 36 MB: more than the L2
-    ms = _time_ms(SS.ssd_diag, sets)
-    plain_ms = _time_ms(ref.ssd_diag_ref, sets)
+    t = {"ms": _device_ms(SS.ssd_diag, sets),
+         "wall_ms": _time_ms(SS.ssd_diag, sets),
+         "plain_ms": _time_ms(ref.ssd_diag_ref, sets)}
+    bwd = _bwd_ms(lambda *a: ops.ssd_diag(*a), sets, 4)
     pairs = L * (L + 1) // 2                 # (l, m) pairs with m <= l
-    # C·Bᵀ once per (batch, chunk): it has no head axis; the scaled
-    # product once per head.  (The kernel recomputes C·Bᵀ for every head:
-    # 2·pairs·(ds + hd)·b·nc·nh, the ops-bound 0.064 ms at this shape.)
+    # the least work: C·Bᵀ once per (batch, chunk), it has no head axis
+    # (the kernel does so), the decayed product once per head
     flops = 2 * pairs * b * nc * (ds + nh * hd)
-    nbytes = 4 * (2 * b * nc * L * ds + b * nc * L * nh
-                  + 2 * b * nc * L * nh * hd)   # cr, br, cum, dtx in; y out
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
-    kernel_flops = 2 * pairs * b * nc * nh * (ds + hd)
+    bd = _bounds(flops, 4 * (2 * b * nc * L * ds + b * nc * L * nh
+                             + 2 * b * nc * L * nh * hd))  # in; y out
     row = {"name": "ssd_diag", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
            "replaces": "src/repro/kernels/ssd_scan.py:39",
-           "launches": launches, "max_abs_err": worst, "ms": ms,
-           "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "library_ms": None}
-    log(f"time ssd_diag (B, nc, L, ds, nh, hd)={SSD_CASES[0]} f32: {ms:.4f} "
-        f"ms (plain {plain_ms:.4f}, bound {row['bound_ms']:.4f} by "
-        f"{row['bound_by']}; bytes {t_bytes:.4f} ms, ops {t_ops:.4f} ms; "
-        f"{kernel_flops / ms / 1e9:.1f} TFLOP/s as the kernel computes)")
+           "launches": launches, "max_abs_err": worst, **t,
+           "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+           "bound_f32_ms": bd["bound_f32_ms"], "library_ms": None,
+           "recompute_bwd_ms": bwd, "recompute_bwd_ms_per_round":
+               bwd * per_round}
+    log(f"time ssd_diag (B, nc, L, ds, nh, hd)={SSD_CASES[0]} f32: device "
+        f"{t['ms']:.4f} ms; as issued {t['wall_ms']:.4f} (plain {t['plain_ms']:.4f}); "
+        f"bound {bd['bound_ms']:.4f} by {bd['bound_by']} on the 3xTF32 "
+        f"route (bytes {bd['bytes_ms']:.4f}, ops {bd['tf32x3_ops_ms']:.4f})"
+        f", {bd['bound_f32_ms']:.4f} on f32 FMA; {flops / t['ms'] / 1e9:.1f}"
+        f" TFLOP/s of least work; recompute backward {bwd:.4f} ms a call, "
+        f"{bwd * per_round:.3f} ms a round ({per_round} calls)")
     return row
 
 
@@ -1222,7 +1328,8 @@ def main() -> int:
     lm_launches = lm_path(lm_st)
     lm_times = time_lm_mlp()
     kernels = time_kernels(worst, launches, lm_launches, lm_times)
-    kernels.append(time_flash(flash_worst, lm_launches["flash_attention"]))
+    kernels.append(time_flash(flash_worst, lm_launches["flash_attention"],
+                              lm_launches["flash_attention"] // 4))
     time_lm_round(lm_st)
     del lm_st
     _free()
@@ -1230,7 +1337,8 @@ def main() -> int:
     ssd_worst = check_ssd()
     hy_st = hybrid_setting()
     hy_launches = hybrid_path(hy_st)
-    kernels.append(time_ssd(ssd_worst, hy_launches["ssd_diag"]))
+    kernels.append(time_ssd(ssd_worst, hy_launches["ssd_diag"],
+                            hy_launches["ssd_diag"] // 4))
     time_hybrid_round(hy_st)
 
     log(json.dumps({"kernels": kernels}))

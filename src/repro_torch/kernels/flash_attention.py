@@ -4,13 +4,18 @@
 
 :func:`flash_attention` computes ``softmax(q kᵀ · hd^-0.5) v`` over
 (B, H, S, hd) operands, causal or full, in one pass over the key tiles with
-an online softmax (the scores never reach device memory).  GQA heads are
-repeated by the caller.  On a CUDA tensor the wrapper checks its operands,
-allocates the output in q's layout, launches the kernel on the current
-stream and raises on a failed launch; on a CPU tensor it computes the plain
-version in ``kernels/ref.py``.  ``LAUNCHES`` counts kernel launches, nothing
-else.  There is no backward kernel here: ``kernels/ops.py`` differentiates
-the plain version, as the reference does.
+an online softmax (the scores never reach device memory).  The kernel runs
+both products on the tensor cores as 3xTF32 split products (f32 parity;
+the source note says how).  GQA heads are repeated by the caller.  On a
+CUDA tensor the wrapper checks its operands, picks the kernel's copy
+variant (``aligned``: 16-byte ``cp.async`` copies where every base pointer
+and B, H, S stride of q, k and v is a multiple of 16 bytes; else
+``unaligned``, element copies), allocates the output in q's layout,
+launches the kernel on the current stream and raises on a failed launch;
+on a CPU tensor it computes the plain version in ``kernels/ref.py``.
+``LAUNCHES`` counts kernel launches, nothing else, and ``CONFIG_LAUNCHES``
+the same launches by copy variant.  There is no backward kernel here:
+``kernels/ops.py`` differentiates the plain version, as the reference does.
 """
 from __future__ import annotations
 
@@ -25,20 +30,31 @@ SOURCE = "flash_attention"
 
 #: kernel launches (plain CPU calls are not counted)
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
+#: the same launches by copy variant
+CONFIG_LAUNCHES: Dict[str, int] = {"aligned": 0, "unaligned": 0}
 
 #: head dims the kernel is compiled for
 HEAD_DIMS = (16, 64, 128)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
              + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_float]
              + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, CONFIG_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def aligned(*ts: torch.Tensor) -> bool:
+    """Every base pointer, and every stride but the unit-stride last one,
+    is a multiple of 16 bytes: each row can be copied in 16-byte chunks."""
+    return all(t.data_ptr() % 16 == 0
+               and all(s * t.element_size() % 16 == 0 for s in t.stride()[:-1])
+               for t in ts)
 
 
 def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -90,15 +106,18 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o
+    vec = aligned(q, k, v)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = _fn()(_DTYPES[q.dtype], hd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-               o.data_ptr(), b, h, sq, sk, int(causal), hd ** -0.5,
+    rc = _fn()(_DTYPES[q.dtype], hd, int(vec), q.data_ptr(), k.data_ptr(),
+               v.data_ptr(), o.data_ptr(), b, h, sq, sk, int(causal),
+               hd ** -0.5,
                *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                *o.stride()[:3], stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention: kernel launch failed with CUDA "
                            f"error {rc}")
     LAUNCHES["flash_attention"] += 1
+    CONFIG_LAUNCHES["aligned" if vec else "unaligned"] += 1
     return o
 
 

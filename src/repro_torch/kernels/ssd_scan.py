@@ -1,14 +1,23 @@
 # repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
-"""Mamba2 SSD intra-chunk term: the wrapper of the CUDA kernel in
+"""Mamba2 SSD intra-chunk term: the wrapper of the CUDA kernels in
 ``csrc/ssd_scan.cu``.
 
 :func:`ssd_diag` computes ``y[l, p] = Σ_{m≤l} (C_l·B_m) · exp(cum_l −
 cum_m) · dtx[m, p]`` per (batch, chunk, head), the diagonal-block term of
 the chunked SSD algorithm, without the (L, L, nh) decay tensors in device
-memory.  On a CUDA tensor the wrapper checks its operands, allocates the
-output in dtx's layout, launches the kernel on the current stream and
-raises on a failed launch; on a CPU tensor it computes the plain version
-in ``kernels/ref.py``.  ``LAUNCHES`` counts kernel launches, nothing else.
+memory.  The CUDA path is two kernels: the first computes C·Bᵀ once per
+(batch, chunk) into an f32 workspace the wrapper allocates, the second
+multiplies each head's decayed scores by its dtx; both run their products
+on the tensor cores as 3xTF32 split products (f32 parity; the source note
+says how).  On a CUDA tensor the wrapper checks its operands, picks the
+kernels' copy variant (``aligned``: 16-byte ``cp.async`` copies where the
+base pointers and the strides but the last of cr, br and dtx are
+multiples of 16 bytes; else ``unaligned``, element copies), allocates the
+output in dtx's layout and the workspace, launches both kernels on the
+current stream and raises on a failed launch; on a CPU tensor it computes
+the plain version in ``kernels/ref.py``.  ``LAUNCHES`` counts wrapper
+calls that launched (one per call, whatever number of kernels it runs),
+nothing else, and ``CONFIG_LAUNCHES`` the same calls by copy variant.
 There is no backward kernel here: ``kernels/ops.py`` differentiates the
 plain version.
 """
@@ -20,25 +29,31 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.flash_attention import aligned
 
 SOURCE = "ssd_scan"
 
-#: kernel launches (plain CPU calls are not counted)
+#: wrapper calls that launched on the card (CPU calls are not counted)
 LAUNCHES: Dict[str, int] = {"ssd_diag": 0}
+#: the same launches by copy variant
+CONFIG_LAUNCHES: Dict[str, int] = {"aligned": 0, "unaligned": 0}
 
 #: state and head dims the kernel is compiled for
 DIMS = (16, 32, 64, 128)
 
+#: rows of the kernels' l and m tiles
+TILE = 64
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
-             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                ctypes.c_longlong] + [ctypes.c_longlong] * 17
-             + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
+             + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+             + [ctypes.c_longlong] * 18 + [ctypes.c_void_p])
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, CONFIG_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def check_operands(cr: torch.Tensor, br: torch.Tensor, cum: torch.Tensor,
@@ -89,15 +104,23 @@ def _launch(cr: torch.Tensor, br: torch.Tensor, cum: torch.Tensor,
     y = torch.empty_like(dtx)
     if y.numel() == 0:
         return y
+    vec = aligned(cr, br, dtx)
+    # C·Bᵀ of every chunk, in whole tiles, for the second kernel (the C
+    # side refuses a smaller workspace)
+    side = TILE * -(-L // TILE)
+    cb = torch.empty(b * nc * side * side, dtype=torch.float32,
+                     device=dtx.device)
     stream = torch.cuda.current_stream(dtx.device).cuda_stream
-    rc = _fn()(_DTYPES[dtx.dtype], ds, hd, cr.data_ptr(), br.data_ptr(),
-               cum.data_ptr(), dtx.data_ptr(), y.data_ptr(), b, nc, nh, L,
+    rc = _fn()(_DTYPES[dtx.dtype], ds, hd, int(vec),
+               cr.data_ptr(), br.data_ptr(), cum.data_ptr(), dtx.data_ptr(),
+               y.data_ptr(), cb.data_ptr(), cb.numel(), b, nc, nh, L,
                *cr.stride()[:3], *br.stride()[:3], *cum.stride()[:3],
                *dtx.stride()[:4], *y.stride()[:4], stream)
     if rc != 0:
         raise RuntimeError(f"ssd_diag: kernel launch failed with CUDA error "
                            f"{rc}")
     LAUNCHES["ssd_diag"] += 1
+    CONFIG_LAUNCHES["aligned" if vec else "unaligned"] += 1
     return y
 
 
