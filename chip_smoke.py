@@ -20,6 +20,27 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    before and read after; the helios run is held against a
    ``kernels="reference"`` run on the card;
 5. time whole rounds of the kernel path against the plain path;
+4d. the async baselines on the same model and fleet: ``run_async(8)`` for
+   asyn and afo with the masked pair's counters zeroed before and read
+   after (6 launches a local step of each processed event: 4 split-K, 2
+   tile128); every param finite; at one local step a cycle, every event's
+   update held to the plain path's from the same inputs at 1e-4 over
+   ``run_async(8)`` and the trajectory over ``run_async(4)`` (cycle, time,
+   staleness identical; acc within 1/512, loss and params within 1e-4),
+   the eight-cycle and the five-step drift beside a 2^-23-nudged plain
+   twin's; a jittered, lossy fleet (lognormal 0.1, dropout 0.2) processing
+   and dropping the same events on both paths; ``snapshot_cap=2`` without
+   an anchor miss; the wall per processed event on both paths, and one run
+   under the profiler;
+4e. sampled cohorts and elastic membership: helios ``run_sync(2)`` over
+   3 of a 3 + 3 fleet for the uniform and the time-weighted sampler (6
+   launches a local step of each cohort member), then the join / leave
+   sequence of ``examples/elastic_scaling.py`` held against the plain path
+   at one local step, trajectory and every cycle's update;
+4f. full-width ResNet-18 (32 px, 100 classes) on a 3 + 3 fleet: helios and
+   syn ``run_sync(2)`` on ``kernels="cuda"`` with no masked launch (conv
+   filters are its only maskable units), finite params, straggler ratios
+   below 1, the round wall, a profiled round and the peak memory;
 3b. hold the flash-attention kernel against its plain version at the LM
    slice's shape (4, 32, 512, 128) causal, at (2, 8, 300, 64) causal and
    ragged and at (2, 4, 256, 16) full, f32 and bf16, on 16-byte copies,
@@ -306,18 +327,22 @@ def setting():
 
 
 def make_run(scheme: str, kernels: str, st, lr: float = 0.05,
-             local_steps: int = 5, nudge: float = 0.0):
-    """A run on the card; ``nudge`` scales the seed-0 initial weights by
-    (1 + nudge) to measure how far rounding noise grows."""
+             local_steps: int = 5, nudge: float = 0.0, fleet=(2, 2),
+             **kw):
+    """A run on the card over ``fleet`` (capable, stragglers) and the first
+    clients' partitions of ``st``; ``nudge`` scales the seed-0 initial
+    weights by (1 + nudge) to measure how far rounding noise grows;
+    ``kw`` goes to ``FLRun`` (participation, sampler, arrival, dropout)."""
     from repro_torch.federated import FLRun, make_fleet, setup_clients
     from repro_torch.models import init_params
     cfg, hcfg, train, test, parts = st
-    clients = setup_clients(make_fleet(2, 2), parts, hcfg, device="cuda")
+    clients = setup_clients(make_fleet(*fleet), parts[:sum(fleet)], hcfg,
+                            device="cuda")
     init = {k: v * (1 + nudge) for k, v in
             init_params(cfg, 0, "cuda").items()} if nudge else None
     return FLRun(cfg, hcfg, scheme, clients, train, test,
                  local_steps=local_steps, lr=lr, kernels=kernels,
-                 device="cuda", init_params=init)
+                 device="cuda", init_params=init, **kw)
 
 
 def _param_diff(a, b) -> float:
@@ -329,6 +354,14 @@ def timed_run(run, rounds: int, eval_every: int = 1):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     hist = run.run_sync(rounds, eval_every=eval_every)
+    torch.cuda.synchronize()
+    return hist, time.perf_counter() - t0
+
+
+def timed_async(run, cycles: int, eval_every: int = 1, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hist = run.run_async(cycles, eval_every=eval_every, **kw)
     torch.cuda.synchronize()
     return hist, time.perf_counter() - t0
 
@@ -547,11 +580,11 @@ def _time_call(label: str, kernel: str, m: int, k: int, n: int, xl: str,
     return {**t, "bound_ms": bound_ms, "bound_by": by}
 
 
-def time_kernels(worst: dict, launches: dict, lm_launches: dict,
-                 lm_times: dict) -> list:
+def time_kernels(worst: dict, paths: dict, lm_times: dict) -> list:
     """The masked kernels at AlexNet's fc0 and fc1 shapes, P = 0.5 (fc0
     forward and dx are the rows' own numbers), beside the LM's MLP times;
-    ``launches`` counts both paths' runs (each path's count is in
+    ``paths`` holds each main path's launch counts (path -> kernel ->
+    launches), ``launches`` their sum (each path's count is in
     ``launches_by_path``)."""
     g = torch.Generator(device="cuda").manual_seed(1)
     times = {"masked_matmul": {}, "masked_matmul_dk": {}}
@@ -572,9 +605,9 @@ def time_kernels(worst: dict, launches: dict, lm_launches: dict,
                     "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
                     "replaces": "src/repro/kernels/masked_matmul.py:"
                                 + ("87" if name == "masked_matmul" else "103"),
-                    "launches": launches[name] + lm_launches[name],
-                    "launches_by_path": {"alexnet": launches[name],
-                                         "lm": lm_launches[name]},
+                    "launches": sum(p[name] for p in paths.values()),
+                    "launches_by_path": {path: p[name]
+                                         for path, p in paths.items()},
                     "max_abs_err": worst[name],
                     "ms": t["ms"], "plain_ms": t["plain_ms"],
                     "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
@@ -600,13 +633,16 @@ def time_rounds(st) -> None:
     profile_round(run, "helios round")
 
 
-def profile_round(run, label: str) -> None:
-    """One round (no evaluation) under the profiler: wall, device busy
-    time, idle share and the device time of the heaviest ops."""
+def profile_round(run, label: str, drive=None) -> dict:
+    """One round (no evaluation), or what ``drive`` runs (it returns its
+    wall in seconds), under the profiler: wall, device busy time, idle
+    share and the device time of the heaviest ops.  Returns the wall, the
+    busy time and the masked kernels' device time in ms."""
     from torch.profiler import ProfilerActivity, profile
+    drive = drive or (lambda: timed_run(run, 1, eval_every=0)[1])
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall = timed_run(run, 1, eval_every=0)
+        wall = drive()
     rows = [e for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA")]
     busy_ms = sum(_device_us(e) for e in rows) / 1e3
@@ -614,17 +650,327 @@ def profile_round(run, label: str) -> None:
         raise AssertionError(f"profile {label}: no device time traced")
     log(f"profile one {label}: wall {wall * 1e3:.3f} ms, device busy "
         f"{busy_ms:.3f} ms, idle share {1 - busy_ms / (wall * 1e3):.4f}")
+    out = {"wall_ms": wall * 1e3, "busy_ms": busy_ms, "masked_ms": 0.0}
     for what, names in (("masked kernels", ("masked_mm", "splitk_reduce")),
                         ("flash_attention kernel", ("flash_fwd_kernel",)),
                         ("ssd_diag kernels", ("ssd_cb_kernel",
                                               "ssd_diag_kernel"))):
         mine = [e for e in rows if any(n in e.key for n in names)]
         if mine:
-            log(f"  {what}: device {sum(map(_device_us, mine)) / 1e3:.3f} ms "
+            ms = sum(map(_device_us, mine)) / 1e3
+            if what == "masked kernels":
+                out["masked_ms"] = ms
+            log(f"  {what}: device {ms:.3f} ms "
                 f"over {sum(e.count for e in mine)} kernel calls")
     for e in sorted(rows, key=_device_us, reverse=True)[:12]:
         log(f"  device {_device_us(e) / 1e3:9.3f} ms  calls {e.count:5d}  "
             f"{e.key[:90]}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the async baselines
+# ---------------------------------------------------------------------------
+
+#: masked calls per local step of full-width AlexNet: the fc0 and fc1
+#: forwards and dx at batch 32 (split-K), their two dw products (tile128)
+CALLS_PER_STEP = {"masked_matmul": 4, "masked_matmul_dk": 2}
+CONFIGS_PER_STEP = {"general": 0, "tile128": 2, "splitk": 4}
+
+
+def _expect_launches(what: str, steps: int) -> dict:
+    """Check the masked pair's counters against ``steps`` local steps of
+    AlexNet (per kernel and per configuration) and return the counts."""
+    from repro_torch.kernels import masked_matmul as K
+    launches, configs = dict(K.LAUNCHES), dict(K.CONFIG_LAUNCHES)
+    log(f"{what} launches {json.dumps(launches)} by configuration "
+        f"{json.dumps(configs)} over {steps} local steps")
+    want = {k: v * steps for k, v in CALLS_PER_STEP.items()}
+    want_cfg = {k: v * steps for k, v in CONFIGS_PER_STEP.items()}
+    if launches != want or configs != want_cfg:
+        raise AssertionError(f"{what}: launches {launches} / {configs}, want "
+                             f"{want} / {want_cfg} (6 a local step)")
+    return launches
+
+
+def _finite(run, what: str) -> None:
+    for k, v in run.global_params.items():
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{what}: non-finite {k}")
+
+
+def _hold_paths(what: str, a, b, keys) -> float:
+    """Kernel path ``a`` against plain path ``b`` after the same rounds or
+    events: the history's ``keys`` identical, acc within 1/512, loss within
+    1e-4, params within 1e-4.  Returns the params' max |diff|."""
+    if len(a.history) != len(b.history):
+        raise AssertionError(f"{what}: history lengths differ")
+    for x, y in zip(a.history, b.history):
+        for key in keys:
+            if x[key] != y[key]:
+                raise AssertionError(f"{what}: history {key} differs: "
+                                     f"{x[key]} vs {y[key]}")
+        if abs(x["acc"] - y["acc"]) > 1.0 / 512 or \
+                abs(x["loss"] - y["loss"]) > 1e-4:
+            raise AssertionError(f"{what}: history acc/loss differ: {x} "
+                                 f"vs {y}")
+    diff = _param_diff(a, b)
+    if not diff <= 1e-4:
+        raise AssertionError(f"{what}: kernel path drifts from the plain "
+                             f"path: {diff}")
+    return diff
+
+
+def _shadow_plain(run) -> list:
+    """Make every local-training call of ``run`` also run the plain path
+    on the same params, batches and masks; returns the list that collects
+    each call's max |param diff| (its own launches are the kernel path's:
+    the plain path launches nothing)."""
+    from repro_torch.federated.adapter import make_adapter
+    from repro_torch.federated.runtime import _make_local_train
+    plain = _make_local_train(make_adapter(run.cfg, "reference",
+                                           run.mask_block, run.device),
+                              run.opt)
+    kernel = run._local_train
+    diffs = []
+
+    def both(params, batches, masks):
+        out = kernel(params, batches, masks)
+        ref, _ = plain(params, batches, masks)
+        diffs.append(max(float((out[0][k] - v).abs().max())
+                         for k, v in ref.items()))
+        return out
+
+    run._local_train = both
+    return diffs
+
+
+def async_path(st) -> dict:
+    """asyn and afo, ``run_async(8)`` on the kernel path with the masked
+    pair's counters zeroed before and read after: 6 launches a local step
+    of each processed event.  Then parity with the plain path, a jittered
+    and lossy fleet, a small snapshot cap, and the wall per event."""
+    from repro_torch.federated import BernoulliDropout, JitteredArrival
+    from repro_torch.kernels import masked_matmul as K
+    steps = 5
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    events = 0
+    for scheme in ("asyn", "afo"):
+        run = make_run(scheme, "cuda", st, local_steps=steps)
+        hist, wall = timed_async(run, 8)
+        events += run.events_processed
+        log(f"async path {scheme}: run_async(8) in {wall:.3f} s, "
+            f"{run.events_processed} events, staleness "
+            f"{[r['staleness'] for r in hist]}, snapshot peak "
+            f"{run.snapshot_peak}, queue peak {run.rec.count('queue_peak')}")
+        for row in hist:
+            log("  history", json.dumps(row))
+        _finite(run, f"async {scheme}")
+    launches = _expect_launches("async path", steps * events)
+    log(f"async path peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB "
+        f"(snapshot cap 64)")
+    # One local step a cycle.  Every event's update is held to the plain
+    # path's from the same params, batch and masks; the trajectory is
+    # held to the plain path over 4 capable cycles.  Over 8 (10 events
+    # in a chain) rounding noise grows to the order of 1e-4, so that
+    # drift is printed beside a 2^-23-nudged plain twin's.
+    for scheme in ("asyn", "afo"):
+        runs = {name: make_run(scheme, kernels, st, local_steps=1,
+                               nudge=nudge)
+                for name, kernels, nudge in (
+                    ("cuda", "cuda", 0.0), ("plain", "reference", 0.0),
+                    ("nudged", "reference", 2.0 ** -23))}
+        per_event = _shadow_plain(runs["cuda"])
+        for run in runs.values():
+            timed_async(run, 8)
+        log(f"async {scheme} run_async(8) x 1 local step: every event's "
+            f"update kernel vs plain from the same inputs, worst "
+            f"{max(per_event):.3e} over {len(per_event)} events; trajectory "
+            f"max|param diff| kernel vs plain "
+            f"{_param_diff(runs['cuda'], runs['plain']):.3e}, plain vs "
+            f"nudged plain {_param_diff(runs['plain'], runs['nudged']):.3e}")
+        if not max(per_event) <= 1e-4:
+            raise AssertionError(f"async {scheme}: an event's update "
+                                 f"disagrees with the plain path: "
+                                 f"{per_event}")
+        a, b = (make_run(scheme, k, st, local_steps=1)
+                for k in ("cuda", "reference"))
+        for run in (a, b):
+            timed_async(run, 4)
+        diff = _hold_paths(f"async {scheme}", a, b,
+                           ("cycle", "time", "staleness"))
+        log(f"async {scheme} run_async(4) x 1 local step: max|param diff| "
+            f"kernel vs plain {diff:.3e}")
+    # a jittered, lossy fleet draws the same events on both paths
+    lossy = [make_run("asyn", k, st, local_steps=1,
+                      arrival=JitteredArrival(0.1),
+                      dropout=BernoulliDropout(0.2))
+             for k in ("cuda", "reference")]
+    for run in lossy:
+        timed_async(run, 8)
+    counts = [(r.events_processed, r.events_dropped) for r in lossy]
+    log(f"asyn jitter 0.1 + dropout 0.2: (processed, dropped) kernel "
+        f"{counts[0]}, plain {counts[1]}; times "
+        f"{[r['time'] for r in lossy[0].history]}; max|param diff| "
+        f"{_param_diff(*lossy):.3e}")
+    if counts[0] != counts[1]:
+        raise AssertionError(f"jittered lossy fleet: event counts differ "
+                             f"{counts}")
+    # a small snapshot cap evicts, never a live anchor
+    run = make_run("afo", "cuda", st)
+    timed_async(run, 8, eval_every=0, snapshot_cap=2)
+    bound = 2 + len(run.clients) + 1
+    log(f"afo snapshot_cap 2: peak {run.snapshot_peak} (bound {bound}), "
+        f"anchor misses {run.snapshot_anchor_misses}")
+    if run.snapshot_anchor_misses or run.snapshot_peak > bound:
+        raise AssertionError("snapshot cap 2: an anchor was evicted or the "
+                             "snapshot dict outgrew its bound")
+    time_async(st)
+    return launches
+
+
+def time_async(st) -> None:
+    """Wall per processed event of asyn (no evaluation), kernel path
+    against plain path in turns, then one kernel-path run under the
+    profiler: idle share and the masked kernels' device time an event."""
+    per_event = {"cuda": [], "reference": []}
+    for kernels in ("cuda", "reference", "reference", "cuda"):
+        run = make_run("asyn", kernels, st)
+        _, wall = timed_async(run, 8, eval_every=0)
+        per_event[kernels].append(wall * 1e3 / run.events_processed)
+    log("async wall ms per processed event, asyn run_async(8): "
+        + json.dumps(per_event))
+    run = make_run("asyn", "cuda", st)
+    prof = profile_round(run, "asyn run_async(8)",
+                         lambda: timed_async(run, 8, eval_every=0)[1])
+    log(f"async masked kernels' device time per event "
+        f"{prof['masked_ms'] / run.events_processed:.4f} ms, wall per event "
+        f"{prof['wall_ms'] / run.events_processed:.3f} ms")
+
+
+# ---------------------------------------------------------------------------
+# phase 4e: sampled cohorts and elastic membership
+# ---------------------------------------------------------------------------
+
+
+def six_client_setting(st):
+    """The AlexNet setting's data split over six clients."""
+    from repro_torch.data.federated import partition_noniid
+    cfg, hcfg, train, test, _ = st
+    return cfg, hcfg, train, test, partition_noniid(train["labels"], 6,
+                                                    shards_per_client=4)
+
+
+def cohort_path(st6) -> dict:
+    """helios ``run_sync(2)`` over 3 of a 3 + 3 fleet, uniform and
+    time-weighted, then the elastic join / leave sequence; the masked
+    pair's counters are zeroed before and read after each kernel-path run
+    (6 launches a local step of each cohort member)."""
+    from repro_torch.federated import TABLE_I
+    from repro_torch.kernels import masked_matmul as K
+    steps = 5
+    total = {k: 0 for k in CALLS_PER_STEP}
+    for sampler in ("uniform", "time_weighted"):
+        run = make_run("helios", "cuda", st6, local_steps=steps,
+                       fleet=(3, 3), participation=3, sampler=sampler)
+        K.reset_launches()
+        hist, wall = timed_run(run, 2)
+        got = _expect_launches(
+            f"cohort path {sampler}",
+            steps * sum(len(c) for c in run.cohort_log))
+        total = {k: total[k] + got[k] for k in total}
+        log(f"cohort path {sampler}: 2 rounds in {wall:.3f} s, cohorts "
+            f"{run.cohort_log}")
+        for row in hist:
+            log("  history", json.dumps(row))
+        _finite(run, f"cohort {sampler}")
+    # examples/elastic_scaling.py's sequence, one local step a cycle; each
+    # kernel-path cycle also checked against the plain path on its inputs
+    runs = {}
+    for kernels in ("cuda", "reference"):
+        run = make_run("helios", kernels, st6, local_steps=1)
+        if kernels == "cuda":
+            per_cycle = _shadow_plain(run)
+        K.reset_launches()
+        timed_run(run, 2)
+        new = run.add_client(TABLE_I[3], st6[4][4])
+        timed_run(run, 1)
+        run.remove_client(new.cid)
+        timed_run(run, 1)
+        if kernels == "cuda":
+            got = _expect_launches("elastic join / leave", sum(
+                len(c) for c in run.cohort_log))
+            total = {k: total[k] + got[k] for k in total}
+        log(f"elastic {kernels}: joined cid {new.cid} straggler "
+            f"{new.is_straggler} volume {new.volume:.4f}; cohorts "
+            f"{[len(c) for c in run.cohort_log]}")
+        runs[kernels] = run
+    diff = _hold_paths("elastic", runs["cuda"], runs["reference"],
+                       ("cycle", "time", "volumes", "ratios"))
+    log(f"elastic join / leave x 1 local step: max|param diff| kernel vs "
+        f"plain {diff:.3e}; each cycle's update from the same inputs, "
+        f"worst {max(per_cycle):.3e} over {len(per_cycle)} cycles")
+    if not max(per_cycle) <= 1e-4:
+        raise AssertionError(f"elastic: a cycle's update disagrees with the "
+                             f"plain path: {per_cycle}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: ResNet-18
+# ---------------------------------------------------------------------------
+
+
+def resnet_path() -> None:
+    """Full-width ResNet-18 (32 px, 100 classes) on a 3 + 3 fleet: helios
+    and syn ``run_sync(2)`` with ``kernels="cuda"``.  Its maskable units
+    are conv filters, so no masked kernel launches (no call site, as in the
+    reference)."""
+    from repro_torch.configs import RESNET18, HeliosConfig
+    from repro_torch.data.federated import partition_noniid
+    from repro_torch.data.synthetic import class_gaussian_images
+    from repro_torch.kernels import masked_matmul as K
+    cfg = RESNET18
+    imgs, labels = class_gaussian_images(2000, cfg.image_size,
+                                         cfg.in_channels, cfg.num_classes)
+    ti, tl = class_gaussian_images(512, cfg.image_size, cfg.in_channels,
+                                   cfg.num_classes, seed=99)
+    st = (cfg, HeliosConfig(mask_block=BLOCK),
+          {"images": imgs, "labels": labels}, {"images": ti, "labels": tl},
+          partition_noniid(labels, 6, shards_per_client=4))
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    for scheme in ("helios", "syn"):
+        run = make_run(scheme, "cuda", st, fleet=(3, 3))
+        n = sum(v.numel() for v in run.global_params.values())
+        hist, wall = timed_run(run, 2)
+        log(f"resnet18 {scheme} ({n / 1e6:.3f} M params): 2 rounds in "
+            f"{wall:.3f} s (first runs, cuDNN set-up included)")
+        for row in hist:
+            log("  history", json.dumps(row))
+        _finite(run, f"resnet18 {scheme}")
+        if scheme == "helios":
+            strag = [r for c, r in zip(run.clients, hist[-1]["ratios"])
+                     if c.is_straggler]
+            if not strag or max(strag) >= 1.0:
+                raise AssertionError(f"resnet18 helios straggler ratios not "
+                                     f"below 1: {strag}")
+    launches = dict(K.LAUNCHES)
+    log(f"resnet18 masked launches {json.dumps(launches)} (no call site)")
+    if any(launches.values()):
+        raise AssertionError(f"resnet18 launched masked kernels: {launches}")
+    walls = []
+    for _ in range(2):
+        _, wall = timed_run(run, 1, eval_every=0)
+        walls.append(wall)
+    log(f"resnet18 syn round wall s (no evaluation): {json.dumps(walls)}")
+    run = make_run("helios", "cuda", st, fleet=(3, 3))
+    timed_run(run, 1, eval_every=0)
+    profile_round(run, "helios resnet18 round")
+    log(f"resnet18 path peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
 
 
 # ---------------------------------------------------------------------------
@@ -1320,14 +1666,21 @@ def main() -> int:
     st = setting()
     launches = main_path(st)
     time_rounds(st)
+    async_launches = async_path(st)
+    cohort_launches = cohort_path(six_client_setting(st))
     del st
+    _free()
+    resnet_path()
     _free()
 
     flash_worst = check_flash()
     lm_st = lm_setting()
     lm_launches = lm_path(lm_st)
     lm_times = time_lm_mlp()
-    kernels = time_kernels(worst, launches, lm_launches, lm_times)
+    kernels = time_kernels(worst, {"alexnet": launches,
+                                   "async": async_launches,
+                                   "cohort": cohort_launches,
+                                   "lm": lm_launches}, lm_times)
     kernels.append(time_flash(flash_worst, lm_launches["flash_attention"],
                               lm_launches["flash_attention"] // 4))
     time_lm_round(lm_st)

@@ -6,6 +6,8 @@
 * ``masked_mean``: per-COORDINATE weighted mean over the clients that
   trained each coordinate; coordinates nobody trained keep the global value.
 * ``uniform``: plain FedAvg (the Syn. FL baseline).
+* :func:`mix`: the async schemes' per-event mixing, discounted by
+  :func:`staleness_weight` under afo.
 
 Parameters are dicts of tensors, flat (CNN) or nested (LM); sums run in
 float32 in client order, leaf by leaf.
@@ -86,3 +88,21 @@ def aggregate(cfg_mode: str, global_params: Params,
     if cfg_mode == "uniform":
         return aggregate_uniform(global_params, client_params)
     raise ValueError(cfg_mode)
+
+
+def staleness_weight(staleness: int, a: float = 0.5) -> float:
+    """AFO (Xie et al. 2019) polynomial staleness discount (t - tau + 1)^-a,
+    a host float."""
+    return float((staleness + 1.0) ** (-a))
+
+
+def mix(global_params: Params, client_params: Params,
+        weight: float) -> Params:
+    """Async mixing: theta <- (1-w) theta + w theta_client in float32, cast
+    back to the global's dtype.  Builds new tensors: the async loop keeps
+    earlier globals by reference as its snapshots, so an in-place update
+    here would move a straggler's base."""
+    return tree_map(
+        lambda g, c: ((1 - weight) * g.float()
+                      + weight * c.float()).to(g.dtype),
+        global_params, client_params)

@@ -1,13 +1,22 @@
 # repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
-"""The sequential federated round engine (``FLRun.run_sync``).
+"""The sequential federated engine: ``FLRun.run_sync`` and ``run_async``.
 
 The algorithm lives behind :mod:`repro_torch.federated.schemes`; this module
-owns execution.  Time is simulated (``heterogeneity.cycle_time``); the
-metric is real: models train on real tensors on the run's device.  One
-round: §IV.C pace -> simulated times -> each client's cycle (Eq. 2 masks,
-masked local SGD, Eq. 1 scores) -> aggregation (Eq. 10) -> volume
-adaptation -> history.  The loop never waits for the device except in
-``evaluate`` and the history row behind the eval gate.
+owns execution.  Time is simulated (``heterogeneity.cycle_time``,
+:mod:`repro_torch.federated.events`); the metric is real: models train on
+real tensors on the run's device.
+
+* ``run_sync``, one round: draw the cohort (everyone unless
+  ``participation`` samples a few) -> §IV.C pace over the cohort ->
+  simulated times -> each member's cycle (Eq. 2 masks, masked local SGD,
+  Eq. 1 scores) -> aggregation (Eq. 10) -> volume adaptation -> history.
+* ``run_async``, the asyn / afo event loop: one client cycle per completion
+  event, trained from the snapshot of the global the client last pulled and
+  mixed into the current global on arrival.
+* ``add_client`` / ``remove_client``: §VI.C elastic membership.
+
+The loops never wait for the device except in ``evaluate`` and the history
+row behind the eval gate.
 """
 from __future__ import annotations
 
@@ -27,6 +36,8 @@ from repro_torch.core.identification import (DeviceProfile,
                                              identify_time_based)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.federated.adapter import FamilyAdapter, make_adapter
+from repro_torch.federated.events import (ArrivalProcess, DropoutProcess,
+                                          SimClock)
 from repro_torch.federated.heterogeneity import cycle_time
 from repro_torch.federated.schemes import Scheme, make_scheme
 from repro_torch.kernels.ops import canonical_impl
@@ -84,6 +95,7 @@ class Client:
     volume: float = 1.0
     helios_state: Optional[dict] = None
     is_straggler: bool = False
+    staleness_anchor: int = 0          # agg step the client last pulled from
 
 
 @dataclasses.dataclass
@@ -101,6 +113,17 @@ class FLRun:
     lr: float = 0.05
     seed: int = 0
     eval_batch: int = 512              # eval CHUNK size (full set is scored)
+    #: partial participation: sample this many clients per round (0 = all).
+    #: The population's Helios state persists across rounds; only the
+    #: sampled cohort trains, and §IV.C pace/volume adaptation runs over it.
+    participation: int = 0
+    #: cohort sampler: "uniform", or "time_weighted" (p ∝ 1/cycle_time, so
+    #: fast devices are drawn more often and the round critical path drops)
+    sampler: str = "uniform"
+    #: async event processes (federated.events): completion-delay jitter and
+    #: per-event update loss.  None = the deterministic Table-I cost model.
+    arrival: Optional[ArrivalProcess] = None
+    dropout: Optional[DropoutProcess] = None
     #: soft-training substrate: "reference" (plain masked ops) or "cuda"
     #: (block-sparse masked-matmul kernels, flash attention for the LM,
     #: the SSD intra-chunk kernel for the hybrid; "pallas" is an alias)
@@ -131,7 +154,12 @@ class FLRun:
                 dict(self.init_params))
         self.opt = make_optimizer("momentum", self.lr)
         self.rng = np.random.default_rng(self.seed)
+        # participation draws live on their own stream, so full
+        # participation stays draw-for-draw unchanged when sampling is off
+        self.sample_rng = np.random.default_rng((self.seed, 0x5EED))
+        self.cohort_log: List[List[int]] = []
         self.history: List[dict] = []
+        self.round = 0
         self._n_params = sum(p.numel()
                              for p in tree_leaves(self.global_params))
         self.rec = Recorder()
@@ -140,6 +168,7 @@ class FLRun:
                                            volume=c.volume, seed=c.cid,
                                            device=self.device)
         self._local_train = _make_local_train(self.adapter, self.opt)
+        self._scheme.init_run(self)
 
     # -- accounting ------------------------------------------------------
     def downlink_bytes(self) -> float:
@@ -147,9 +176,34 @@ class FLRun:
         f32 global."""
         return float(self.downlink_updates) * self._n_params * 4.0
 
+    # -- read-only counter views (the recorder is the single surface) ----
     @property
     def downlink_updates(self) -> int:
         return self.rec.count("downlink_updates")
+
+    @property
+    def uplink_updates(self) -> int:
+        return self.rec.count("uplink_updates")
+
+    @property
+    def events_processed(self) -> int:
+        return self.rec.count("events_processed")
+
+    @property
+    def events_dropped(self) -> int:
+        return self.rec.count("events_dropped")
+
+    @property
+    def agg_counter(self) -> int:
+        return self.rec.count("agg_counter")
+
+    @property
+    def snapshot_peak(self) -> int:
+        return self.rec.count("snapshot_peak", 1)
+
+    @property
+    def snapshot_anchor_misses(self) -> int:
+        return self.rec.count("snapshot_anchor_misses")
 
     # -- one client's cycle ------------------------------------------------
     def _client_masks(self, client: Client) -> dict:
@@ -207,23 +261,47 @@ class FLRun:
         return total / max(weight, 1e-9)
 
     # -- the sync round ----------------------------------------------------
-    def _round_times(self, clients: Sequence[Client]) -> List[float]:
-        """Simulated wall time per client for one round, billed at the
-        scheme's effective volume."""
-        return [cycle_time(c.profile, self._scheme.effective_volume(c))
-                for c in clients]
+    def _draw_cohort(self) -> List[int]:
+        """This round's participant indices (sorted, duplicate-free).
 
-    def _train_cohort(self, cclients: List[Client]):
-        """Train every client against the current global params (consuming
-        ``self.rng`` in client order) and aggregate; returns per-client
-        (losses, ratios)."""
+        Full participation returns every client and draws nothing.
+        Sampling consumes one ``sample_rng`` draw per round;
+        ``time_weighted`` weights clients by inverse simulated cycle time
+        at their current volume (``_round_times`` over the fleet).
+        """
+        n = len(self.clients)
+        k = self.participation
+        if not k or k >= n:
+            return list(range(n))
+        if self.sampler == "uniform":
+            p = None
+        elif self.sampler == "time_weighted":
+            t = np.asarray(self._round_times())
+            w = 1.0 / np.maximum(t, 1e-9)
+            p = w / w.sum()
+        else:
+            raise ValueError(f"unknown sampler {self.sampler!r}")
+        idx = self.sample_rng.choice(n, size=k, replace=False, p=p)
+        return sorted(int(i) for i in idx)
+
+    def _round_times(self, clients: Optional[Sequence[Client]] = None) \
+            -> List[float]:
+        """Simulated wall time per client (the whole fleet by default) for
+        one round, billed at the scheme's effective volume."""
+        return [cycle_time(c.profile, self._scheme.effective_volume(c))
+                for c in (self.clients if clients is None else clients)]
+
+    def _train_cohort(self, cohort: List[int], cclients: List[Client]):
+        """Train the drawn cohort against the current global params
+        (consuming ``self.rng`` in cohort order) and aggregate; returns
+        per-client (losses, ratios) in cohort order."""
         results = [self._client_cycle(c, self.global_params)
                    for c in cclients]
         self._aggregate(results)
         return [r[3] for r in results], [r[2] for r in results]
 
-    def _adapt_volumes(self, cclients: List[Client], times: List[float],
-                       pace: float) -> None:
+    def _adapt_volumes(self, cohort: List[int], cclients: List[Client],
+                       times: List[float], pace: float) -> None:
         """Move straggler volumes toward the collaboration pace (§IV.C)."""
         if not (self._scheme.adapt_volume and self.hcfg.adapt_volume):
             return
@@ -249,18 +327,145 @@ class FLRun:
                 "downlink_mb": self.downlink_bytes() / 1e6})
 
     def run_sync(self, rounds: int, eval_every: int = 1) -> List[dict]:
-        """``rounds`` synchronous rounds over the whole fleet."""
+        """``rounds`` synchronous rounds: draw the cohort -> pace over the
+        cohort -> simulated times -> ``round_start`` -> train -> volume
+        adaptation -> ``round_end`` -> clock -> record.  Unsampled clients
+        keep their Helios state untouched."""
         clock = 0.0
         for r in range(rounds):
-            cclients = list(self.clients)
+            cohort = self._draw_cohort()
+            self.cohort_log.append(cohort)
+            cclients = [self.clients[i] for i in cohort]
             pace = _collab_pace(cclients)
             times = self._round_times(cclients)
-            self.rec.inc("downlink_updates", len(cclients))  # global broadcast
-            losses, ratios = self._train_cohort(cclients)
-            self._adapt_volumes(cclients, times, pace)
+            self.rec.inc("downlink_updates", len(cohort))   # global broadcast
+            self._scheme.round_start(self)
+            losses, ratios = self._train_cohort(cohort, cclients)
+            self.rec.inc("uplink_updates", len(cohort))
+            self._adapt_volumes(cohort, cclients, times, pace)
+            self._scheme.round_end(self)
             clock += self._scheme.round_duration(times, cclients)
+            self.round += 1
             self._record_round(r, rounds, eval_every, clock, losses, ratios)
         return self.history
+
+    # -- the async event loop ----------------------------------------------
+    def _next_delay(self, client: Client) -> float:
+        """Delay until this client's next completion: the Table-I cost
+        model, optionally perturbed by the arrival process."""
+        base = cycle_time(client.profile, 1.0)
+        return self.arrival.delay(client.cid, base) if self.arrival else base
+
+    def _reset_async_processes(self) -> None:
+        for p in (self.arrival, self.dropout):
+            if p is not None:
+                p.reset(self.seed)
+
+    def run_async(self, capable_cycles: int, mix_weight: float = 0.5,
+                  staleness_a: float = 0.5, eval_every: int = 1,
+                  snapshot_cap: int = 64) -> List[dict]:
+        """asyn / afo: one client cycle per completion event, until the
+        capable clients completed ``capable_cycles`` cycles.
+
+        A client trains from the global it pulled at its last completion
+        (``snapshots[staleness_anchor]``, kept by reference: every update
+        builds new tensors) and its result is mixed into the current global
+        at the scheme's weight.  Snapshots are evicted oldest first beyond
+        ``snapshot_cap``, never the newest one nor a live anchor, so the
+        dict stays within ``snapshot_cap + len(clients) + 1``.
+        """
+        clock = SimClock()
+        self._reset_async_processes()
+        snapshots = {0: self.global_params}
+        self.rec.set("snapshot_peak", 1)
+        self.rec.set("snapshot_anchor_misses", 0)
+        self.rec.set("events_processed", 0)
+        self.rec.set("events_dropped", 0)
+        for c in self.clients:
+            c.staleness_anchor = 0
+            clock.schedule(self._next_delay(c), c.cid)
+        done_fast = 0
+        agg_counter = 0
+        by_id = {c.cid: c for c in self.clients}
+        while done_fast < capable_cycles and not clock.empty():
+            cid = clock.pop()
+            c = by_id[cid]
+            if self.dropout is not None and self.dropout.drops(cid):
+                self.rec.inc("events_dropped")
+                clock.schedule(self._next_delay(c) * self.dropout.penalty,
+                               cid)
+                continue
+            # anchors are never evicted (below): this lookup cannot miss
+            base = snapshots[c.staleness_anchor]
+            stale = agg_counter - c.staleness_anchor
+            new_params, _, _, loss = self._client_cycle(c, base)
+            self.rec.inc("uplink_updates")
+            w = self._scheme.async_weight(mix_weight, stale, staleness_a)
+            self.global_params = AG.mix(self.global_params, new_params, w)
+            agg_counter += 1
+            snapshots[agg_counter] = self.global_params
+            c.staleness_anchor = agg_counter
+            if len(snapshots) > snapshot_cap:
+                anchored = {cl.staleness_anchor for cl in self.clients}
+                for k in sorted(snapshots):
+                    if len(snapshots) <= snapshot_cap:
+                        break
+                    if k != agg_counter and k not in anchored:
+                        del snapshots[k]
+                self.rec.inc("snapshot_anchor_misses", sum(
+                    cl.staleness_anchor not in snapshots
+                    for cl in self.clients))
+            self.rec.set_max("snapshot_peak", len(snapshots))
+            clock.schedule(self._next_delay(c), cid)
+            self.rec.inc("events_processed")
+            self.rec.inc("downlink_updates")   # the event's snapshot pull
+            if not c.is_straggler:
+                done_fast += 1
+                if eval_every > 0 and done_fast % eval_every == 0:
+                    self.history.append({
+                        "scheme": self.scheme, "cycle": done_fast,
+                        "time": clock.now,
+                        "record_cadence": "event",
+                        self.adapter.metric_name: self.evaluate(),
+                        # behind the eval gate: evaluate() just synced
+                        "loss": float(loss),  # repro: noqa[R3]
+                        "staleness": stale,
+                        "downlink_mb": self.downlink_bytes() / 1e6})
+        self.rec.set("agg_counter", agg_counter)
+        self.rec.set("queue_peak", clock.peak_depth)
+        return self.history
+
+    # -- elastic membership (§VI.C) ----------------------------------------
+    def add_client(self, profile: DeviceProfile, data_idx: np.ndarray,
+                   white_box: bool = True) -> Client:
+        """A device joins mid-flight: identify -> assign volume -> admit."""
+        cid = max((c.cid for c in self.clients), default=-1) + 1
+        if white_box:
+            _, stragglers = identify_resource_based(
+                workload_gflop=100.0, memory_mb=200.0,
+                devices=[c.profile for c in self.clients] + [profile])
+            is_straggler = len(self.clients) in stragglers or \
+                profile.speed_factor > 1.5
+        else:
+            sim = [cycle_time(c.profile, 1.0) for c in self.clients] + \
+                [cycle_time(profile, 1.0)]
+            _, stragglers = identify_time_based(
+                lambda d: None, len(sim), simulated_times=sim)
+            is_straggler = len(self.clients) in stragglers
+        pace = _collab_pace(self.clients)
+        vol = VOL.volume_from_profile(cycle_time(profile, 1.0), pace,
+                                      self.hcfg.min_volume) \
+            if is_straggler else 1.0
+        c = Client(cid=cid, profile=profile, data_idx=data_idx, volume=vol,
+                   is_straggler=is_straggler)
+        c.helios_state = ST.init_state(self.adapter.schema, volume=vol,
+                                       seed=cid, device=self.device)
+        self.clients.append(c)
+        return c
+
+    def remove_client(self, cid: int) -> None:
+        """A device leaves: it drops out of the next aggregation."""
+        self.clients = [c for c in self.clients if c.cid != cid]
 
 
 def setup_clients(profiles: Sequence[DeviceProfile],

@@ -1,5 +1,5 @@
 # repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
-"""Per-scheme update policies for the synchronous paper schemes.
+"""Per-scheme update policies for the paper's schemes.
 
 The engine knows HOW to run a round; a :class:`Scheme` says WHAT the round
 means: which clients soft-train, which HeliosConfig they see, how the
@@ -10,6 +10,11 @@ billed.  The engine reads only this interface, never a scheme name.
   syn      — Synchronized FL: everyone trains the full model, wait for all
   st_only  — soft-training WITHOUT the Eq. 10 optimization (§VII.C)
   random   — Caldas et al. [12]: random sub-model, no top-k / rotation
+  asyn     — asynchronous FL: constant-weight mixing on arrival
+  afo      — asynchronous federated optimization: staleness-discounted
+             mixing (Xie et al. 2019)
+
+asyn and afo run on ``FLRun.run_async``, the sequential event loop.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import dataclasses
 from typing import Dict, Type
 
 from repro_torch.configs.base import HeliosConfig
+from repro_torch.core import aggregation as AG
 
 
 def _random_hcfg(hcfg: HeliosConfig) -> HeliosConfig:
@@ -26,11 +32,16 @@ def _random_hcfg(hcfg: HeliosConfig) -> HeliosConfig:
 
 
 class Scheme:
-    """The common synchronous full-model policy; subclasses flip flags."""
+    """The common synchronous full-model policy; subclasses flip flags and
+    override hooks."""
 
     name = "base"
     #: stragglers run Eq. 2 mask selection + helios_state evolution
     soft_training = False
+    #: native event-driven scheme (run on ``FLRun.run_async``)
+    async_native = False
+    #: asynchronously mixed updates are discounted by (staleness+1)^-a
+    staleness_discount = False
     #: §IV.C volume adaptation moves straggler volumes toward the pace
     adapt_volume = False
     #: cycle scores come from the local update delta (False = keep the
@@ -56,6 +67,23 @@ class Scheme:
     def round_duration(self, times, cclients) -> float:
         """Simulated wall-clock of one synchronous round (critical path)."""
         return max(times)
+
+    def async_weight(self, mix_weight: float, stale: int,
+                     staleness_a: float) -> float:
+        """Per-event mix weight of the async loop."""
+        if self.staleness_discount:
+            return mix_weight * AG.staleness_weight(stale, staleness_a)
+        return mix_weight
+
+    # -- per-run state -------------------------------------------------
+    def init_run(self, run) -> None:
+        """Attach scheme-owned state to a freshly constructed run."""
+
+    def round_start(self, run) -> None:
+        """Host hook before a sync round's cohort trains."""
+
+    def round_end(self, run) -> None:
+        """Host hook after a sync round aggregated."""
 
 
 class HeliosScheme(Scheme):
@@ -89,9 +117,23 @@ class SynScheme(Scheme):
     full_volume = True
 
 
+class AsynScheme(Scheme):
+    """Asynchronous FL: constant-weight mixing on arrival."""
+    name = "asyn"
+    async_native = True
+
+
+class AfoScheme(Scheme):
+    """Asynchronous Federated Optimization: staleness-discounted mixing."""
+    name = "afo"
+    async_native = True
+    staleness_discount = True
+
+
+#: registry, in the reference's display order
 SCHEMES: Dict[str, Type[Scheme]] = {
     cls.name: cls for cls in (HeliosScheme, SynScheme, StOnlyScheme,
-                              RandomScheme)
+                              RandomScheme, AsynScheme, AfoScheme)
 }
 
 

@@ -48,6 +48,11 @@ def test_port_imports_with_jax_blocked():
         "from repro_torch.configs import ALEXNET, HeliosConfig, reduced\n"
         "import repro_torch.kernels.build, repro_torch.kernels.masked_matmul\n"
         "import repro_torch.kernels.ssd_scan, repro_torch.models.hybrid\n"
+        "import repro_torch.federated.events\n"
+        "from repro_torch.federated import (JitteredArrival, "
+        "BernoulliDropout, SimClock, AsynScheme, AfoScheme)\n"
+        "from repro_torch.configs import RESNET18\n"
+        "from repro_torch.models.cnn import resnet18_fwd\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m, v in "
         "sys.modules.items() if v is not None)\n"
         "print('ok')\n")
