@@ -41,6 +41,28 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    syn ``run_sync(2)`` on ``kernels="cuda"`` with no masked launch (conv
    filters are its only maskable units), finite params, straggler ratios
    below 1, the round wall, a profiled round and the peak memory;
+3d. hold the client-axis masked kernels (one launch for a cohort) against
+   their plain versions at fc0 / fc1 forward, dx and dw for cohorts of 1,
+   2, 4, 8 and 32 (phase 4g's cohorts and the bucket sizes up to 4) at
+   batch 16 and 32, f32 and bf16, each call with the clients'
+   P mixed from {0.25, 0.5, 1.0} and one client without a live block,
+   then with a weight and a mask shared by the cohort (client stride 0);
+   every call twice, bit-identical; dead columns exactly zero;
+4g. the batched engine: ``BatchedFLRun(..., kernels="cuda").run_sync(2)``
+   for helios and syn on the AlexNet 2 + 2 fleet with the counters zeroed
+   before and read after (6 client-axis launches a local step of each
+   cohort, none on the single-client entry points); straggler ratios
+   below 1, finite params; each cohort's vmapped step against per-client
+   plain autograd at 1e-4; two rounds of one local step held at 1e-4
+   against ``FLRun``'s plain path (ratios to one float32 ulp) and the
+   five-step drift beside a 2^-23-nudged twin's; asyn / afo
+   ``run_async(4)`` on the bucket engine against the sequential plain
+   loop at 1e-4; the 2 + 2 round walls of both engines on both paths in
+   turns and a profiled batched round; populations of 16 and 64 clients
+   (half stragglers, IID, helios, 1 local step of batch 16): the round
+   wall of ``FLRun`` against ``BatchedFLRun`` on both paths, the launches
+   of a round, a profiled batched round and its peak memory; then the
+   client-axis kernels' device time, ``torch.bmm`` at P = 1 and the bound;
 3b. hold the flash-attention kernel against its plain version at the LM
    slice's shape (4, 32, 512, 128) causal, at (2, 8, 300, 64) causal and
    ragged and at (2, 4, 256, 16) full, f32 and bf16, on 16-byte copies,
@@ -328,11 +350,12 @@ def setting():
 
 def make_run(scheme: str, kernels: str, st, lr: float = 0.05,
              local_steps: int = 5, nudge: float = 0.0, fleet=(2, 2),
-             **kw):
+             engine=None, **kw):
     """A run on the card over ``fleet`` (capable, stragglers) and the first
     clients' partitions of ``st``; ``nudge`` scales the seed-0 initial
     weights by (1 + nudge) to measure how far rounding noise grows;
-    ``kw`` goes to ``FLRun`` (participation, sampler, arrival, dropout)."""
+    ``engine`` is ``FLRun`` unless given; ``kw`` goes to the engine
+    (participation, sampler, arrival, dropout, batch_size)."""
     from repro_torch.federated import FLRun, make_fleet, setup_clients
     from repro_torch.models import init_params
     cfg, hcfg, train, test, parts = st
@@ -340,9 +363,9 @@ def make_run(scheme: str, kernels: str, st, lr: float = 0.05,
                             device="cuda")
     init = {k: v * (1 + nudge) for k, v in
             init_params(cfg, 0, "cuda").items()} if nudge else None
-    return FLRun(cfg, hcfg, scheme, clients, train, test,
-                 local_steps=local_steps, lr=lr, kernels=kernels,
-                 device="cuda", init_params=init, **kw)
+    return (engine or FLRun)(cfg, hcfg, scheme, clients, train, test,
+                             local_steps=local_steps, lr=lr, kernels=kernels,
+                             device="cuda", init_params=init, **kw)
 
 
 def _param_diff(a, b) -> float:
@@ -618,6 +641,66 @@ def time_kernels(worst: dict, paths: dict, lm_times: dict) -> list:
     return out
 
 
+def _client_bound(kernel: str, m: int, k: int, n: int, cols) -> tuple:
+    """(bound ms, "bytes" or "operations") of a client-axis call: per
+    client, x read whole, its live w columns (dk: its live x columns and w
+    rows) and y written whole, summed over the clients; f32."""
+    nbytes = flops = 0
+    for live in cols:
+        if kernel == "masked_matmul":
+            nbytes += 4 * (m * k + k * live + m * n)
+            flops += 2 * m * k * live
+        else:
+            nbytes += 4 * (m * live + live * n + m * n)
+            flops += 2 * m * live * n
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_client_kernels(worst: dict, launches: dict) -> list:
+    """The client-axis pair at fc0 forward and dx, every client at P = 0.5:
+    the 2 + 2 fleet's cohort of 2 at batch 32 (the rows' own numbers) and
+    the 64-client population's cohort of 32 at batch 16.  Device time, the
+    plain version's (a loop over the clients) event time as issued,
+    ``torch.bmm`` at P = 1 on the same views by device time, and the bound
+    summed over the clients."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    k, n = LAYERS["fc0"]
+    out = []
+    for kind, name in (("fwd", "masked_matmul"), ("dx", "masked_matmul_dk")):
+        rows = {}
+        for c, m in ((2, BATCH), (32, 16)):
+            per_set = 4 * c * (m * k + k * n + m * n)
+            sets, dense = [], []
+            for _ in range(max(1, -(-100_000_000 // per_set))):
+                fn, plain, x, w, live, counts, _, cols = _client_case(
+                    kind, c, m, k, n, torch.float32, g, p=0.5)
+                sets.append((x, w, live, counts, BLOCK))
+                dense.append((x, w))
+            bound, by = _client_bound(name, x.shape[1], x.shape[2],
+                                      w.shape[2], cols)
+            rows[f"C={c} M={m}"] = t = {
+                "ms": _device_ms(fn, sets), "plain_ms": _time_ms(plain, sets),
+                "library_ms": _device_ms(torch.bmm, dense),
+                "bound_ms": bound, "bound_by": by}
+            log(f"time {name}_clients fc0 {kind} C={c} M={m} P=0.5: device "
+                f"{t['ms']:.4f} ms (torch.bmm P=1 same views "
+                f"{t['library_ms']:.4f}), plain {t['plain_ms']:.4f} as "
+                f"issued; bound {bound:.4f} by {by}")
+            del sets, dense
+        main = rows[f"C=2 M={BATCH}"]
+        out.append({"name": f"{name}_clients", "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
+                    "replaces": "src/repro/kernels/masked_matmul.py:"
+                                + ("87" if name == "masked_matmul" else "103"),
+                    "launches": sum(p[name] for p in launches.values()),
+                    "launches_by_path": {path: p[name]
+                                         for path, p in launches.items()},
+                    "max_abs_err": worst[f"{name}_clients"],
+                    **main, "cohorts": rows})
+    return out
+
+
 def time_rounds(st) -> None:
     """Whole rounds (no evaluation), kernel path vs plain path, in turns."""
     walls = {"cuda": [], "reference": []}
@@ -633,11 +716,12 @@ def time_rounds(st) -> None:
     profile_round(run, "helios round")
 
 
-def profile_round(run, label: str, drive=None) -> dict:
+def profile_round(run, label: str, drive=None, host_top: int = 0) -> dict:
     """One round (no evaluation), or what ``drive`` runs (it returns its
     wall in seconds), under the profiler: wall, device busy time, idle
-    share and the device time of the heaviest ops.  Returns the wall, the
-    busy time and the masked kernels' device time in ms."""
+    share and the device time of the heaviest ops (and the ``host_top``
+    heaviest by host self time).  Returns the wall, the busy time and the
+    masked kernels' device time in ms."""
     from torch.profiler import ProfilerActivity, profile
     drive = drive or (lambda: timed_run(run, 1, eval_every=0)[1])
     with profile(activities=[ProfilerActivity.CPU,
@@ -665,6 +749,12 @@ def profile_round(run, label: str, drive=None) -> dict:
     for e in sorted(rows, key=_device_us, reverse=True)[:12]:
         log(f"  device {_device_us(e) / 1e3:9.3f} ms  calls {e.count:5d}  "
             f"{e.key[:90]}")
+    host = [e for e in prof.key_averages()
+            if not str(e.device_type).endswith("CUDA")]
+    for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:host_top]:
+        log(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms  calls "
+            f"{e.count:5d}  {e.key[:90]}")
     return out
 
 
@@ -971,6 +1061,357 @@ def resnet_path() -> None:
     profile_round(run, "helios resnet18 round")
     log(f"resnet18 path peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the client-axis kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+#: cohort sizes and batches of the client-axis checks: the cohorts of
+#: phase 4g (2, 8 and 32) and the bucket engine's padded sizes up to 4 (a
+#: bucket of 1, of 2, of 3 padded to 4), whose split counts differ
+CLIENT_COUNTS, CLIENT_BATCHES = (1, 2, 4, 8, 32), (16, 32)
+
+
+def _client_case(kind: str, c: int, m: int, k: int, n: int, dtype, g,
+                 shared: bool = False, p=None):
+    """One client-axis call of a layer (M, K) -> (M, N) in the layout the
+    vmap rules hand over: 'fwd' x (C, M, K) @ W (C, K, N); 'dx' dy·mask
+    (C, M, N) @ Wᵀ (a transposed view; the dk kernel); 'dw' xᵀ (a
+    transposed view) @ dy·mask.  Client i keeps P = (0.25, 0.5, 1.0)[i % 3]
+    of its mask blocks and client 0 none (a cohort of one: P = 0.5; every
+    client P = ``p`` when it is given); ``shared`` gives W and the mask a
+    client stride of 0 with every block live (a capable cohort's first
+    step: the global weights, full masks).  Returns (fn, plain, x, w, live,
+    counts, dead (C, N) or None, live columns per client)."""
+    from repro_torch.kernels import masked_matmul as K
+    from repro_torch.kernels import ref
+    nb = n // BLOCK
+    if shared:
+        flags = torch.ones(nb, device="cuda").expand(c, nb)
+    elif p is not None or c == 1:
+        flags = torch.stack([_alive(nb, 0.5 if p is None else p, g)
+                             for _ in range(c)])
+    else:
+        flags = torch.stack([torch.zeros(nb, device="cuda")] + [
+            _alive(nb, (0.25, 0.5, 1.0)[i % 3], g) for i in range(1, c)])
+    live, counts = K.live_table(flags)
+    mask = flags.repeat_interleave(BLOCK, dim=1)
+    if shared:
+        w = (torch.randn(k, n, device="cuda", generator=g) / k ** 0.5) \
+            .to(dtype).expand(c, k, n)
+    else:
+        w = (torch.randn(c, k, n, device="cuda", generator=g) / k ** 0.5) \
+            .to(dtype)
+    x = torch.randn(c, m, k, device="cuda", generator=g).to(dtype)
+    dy = (torch.randn(c, m, n, device="cuda", generator=g)
+          * mask[:, None, :]).to(dtype)
+    cols = [int(v) * BLOCK for v in counts.tolist()]
+    if kind == "fwd":
+        return (K.masked_matmul_clients, ref.masked_matmul_clients_ref, x, w,
+                live, counts, mask == 0, cols)
+    if kind == "dx":
+        return (K.masked_matmul_dk_clients, ref.masked_matmul_dk_clients_ref,
+                dy, w.transpose(1, 2), live, counts, None, cols)
+    return (K.masked_matmul_clients, ref.masked_matmul_clients_ref,
+            x.transpose(1, 2), dy, live, counts, mask == 0, cols)
+
+
+def _check_client_call(label: str, fn, plain, x, w, live, counts, dead,
+                       dt) -> tuple:
+    """One client-axis call against its plain version (a loop over the
+    clients): max abs error within 1e-4 (f32) or 2e-2 (bf16) of the
+    output's scale, dead columns exactly zero, a second call bit-identical.
+    Returns (error, the configuration the plan picked)."""
+    from repro_torch.kernels import masked_matmul as K
+    name = fn.__name__
+    c, m, k = x.shape
+    p = K.plan(name.replace("_clients", ""), m, w.shape[2], k, live.shape[1],
+               BLOCK, x, w, clients=c)
+    y = fn(x, w, live, counts, BLOCK)
+    again = fn(x, w, live, counts, BLOCK)
+    want = plain(x.float(), w.float(), live, counts, BLOCK)
+    torch.cuda.synchronize()
+    err = float((y.float() - want).abs().max())
+    tol = (F32_TOL if dt == torch.float32 else BF16_TOL) * \
+        max(float(want.abs().max()), 1e-30)
+    zero_ok = dead is None or bool((y.float() * dead[:, None, :]).eq(0).all())
+    same = torch.equal(y, again)
+    log(f"check {name:24s} {label} {str(dt)[6:]:8s} [{p.config} S={p.splits}"
+        f" grid={p.grid}] max|err|={err:.3e} tol={tol:.3e} "
+        f"dead-zero={zero_ok} repeat-identical={same}")
+    if not (err <= tol and zero_ok and same and math.isfinite(err)):
+        raise AssertionError(f"{name} {label} disagrees with its plain "
+                             f"version: err {err} > tol {tol}, dead columns "
+                             f"not zero ({zero_ok}) or a repeat differs "
+                             f"({same})")
+    return err, p.config
+
+
+def check_client_kernels() -> dict:
+    """The client-axis pair against its plain versions at fc0 / fc1
+    forward, dx and dw for C in CLIENT_COUNTS at batch 16 and 32, f32 and
+    bf16, the clients' P mixed in each call with one client that has no
+    live block; then a shared (stride-0) weight and mask.  Returns the
+    worst f32 error per kernel."""
+    from repro_torch.kernels import masked_matmul as K
+    g = torch.Generator(device="cuda").manual_seed(2)
+    worst = {"masked_matmul_clients": 0.0, "masked_matmul_dk_clients": 0.0}
+    cases = [(kind, c, m, k, n, dt, False)
+             for (k, n) in LAYERS.values() for kind in ("fwd", "dx", "dw")
+             for c in CLIENT_COUNTS for m in CLIENT_BATCHES
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [(kind, c, BATCH, k, n, torch.float32, True)
+              for (k, n) in LAYERS.values() for kind in ("fwd", "dx")
+              for c in (2, 32)]
+    for kind, c, m, k, n, dt, shared in cases:
+        fn, plain, x, w, live, counts, dead, _ = _client_case(kind, c, m, k, n,
+                                                              dt, g, shared)
+        err, config = _check_client_call(
+            f"{kind} C={c} m={m} k={k} n={n}{' shared' if shared else ''}",
+            fn, plain, x, w, live, counts, dead, dt)
+        want = "splitk" if kind != "dw" else \
+            "tile128" if dt == torch.float32 else "general"
+        if config != want:
+            raise AssertionError(f"client {kind} C={c} m={m} {dt} took "
+                                 f"{config}, not {want}")
+        if dt == torch.float32:
+            worst[fn.__name__] = max(worst[fn.__name__], err)
+        del x, w, dead
+    K.reset_launches()
+    return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 4g: the batched engine
+# ---------------------------------------------------------------------------
+
+#: client-axis calls per local step of a cohort (the kernels run one launch
+#: per call for the whole cohort): fc0 / fc1 forward and dw, and dx
+CLIENT_CALLS_PER_STEP = {"masked_matmul": 4, "masked_matmul_dk": 2}
+
+
+def _expect_client_launches(what: str, cohort_steps: int,
+                            configs: dict) -> dict:
+    """The client-axis counters against ``cohort_steps`` (cohorts × local
+    steps) vmapped steps, none on the single-client entry points."""
+    from repro_torch.kernels import masked_matmul as K
+    launches = dict(K.CLIENT_LAUNCHES)
+    got_cfg = {k: v for k, v in K.CLIENT_CONFIG_LAUNCHES.items() if v}
+    log(f"{what} client-axis launches {json.dumps(launches)} by "
+        f"configuration {json.dumps(got_cfg)}, single-client "
+        f"{json.dumps(K.LAUNCHES)}, over {cohort_steps} cohort steps")
+    want = {k: v * cohort_steps for k, v in CLIENT_CALLS_PER_STEP.items()}
+    want_cfg = {k: v * cohort_steps for k, v in configs.items()}
+    if launches != want or got_cfg != want_cfg or any(K.LAUNCHES.values()):
+        raise AssertionError(f"{what}: client-axis launches {launches} / "
+                             f"{got_cfg} (want {want} / {want_cfg}), "
+                             f"single-client {K.LAUNCHES} (want none)")
+    return launches
+
+
+def check_batched_step(st, run) -> None:
+    """One vmapped training step of each cohort (the kernel path, from the
+    global params as the round's first step takes them) against plain
+    autograd client by client: loss and every gradient within 1e-4
+    relative."""
+    from repro_torch.core import soft_train as ST
+    from repro_torch.models import cnn
+    cfg, _, train, _, _ = st
+    batch = {k: torch.as_tensor(v[:2 * BATCH]).cuda()
+             .reshape((2, BATCH) + v.shape[1:]) for k, v in train.items()}
+    strag = [c.helios_state for c in run.clients if c.is_straggler]
+    step = torch.func.grad_and_value(run.adapter.loss_fn)
+    for who, masks, m_dim in (
+            ("straggler cohort", ST.stack_states(strag)["masks"], 0),
+            ("capable cohort", run._ones, None)):
+        grads, loss = torch.func.vmap(step, in_dims=(None, 0, m_dim))(
+            run.global_params, batch, masks)
+        worst = 0.0
+        for i in range(2):
+            params = {k: v.detach().clone().requires_grad_(True)
+                      for k, v in run.global_params.items()}
+            mi = masks if m_dim is None else {k: v[i] for k, v in
+                                              masks.items()}
+            li = cnn.cnn_loss(params, {k: v[i] for k, v in batch.items()},
+                              cfg, {"kernels": "reference",
+                                    "mask_block": BLOCK}, mi)
+            gi = dict(zip(params, torch.autograd.grad(
+                li, list(params.values()))))
+            if not abs(float(loss[i] - li)) <= F32_TOL * abs(float(li)):
+                raise AssertionError(f"{who}: loss {float(loss[i])} vs "
+                                     f"{float(li)}")
+            worst = max([worst] + [float((grads[k][i] - gi[k]).abs().max())
+                                   / max(float(gi[k].abs().max()), 1e-30)
+                                   for k in gi])
+        log(f"batched step {who}: losses {[float(v) for v in loss]}, worst "
+            f"max|grad diff|/max|grad| against per-client plain autograd "
+            f"{worst:.3e}")
+        if not worst <= F32_TOL:
+            raise AssertionError(f"{who}: vmapped step disagrees with plain "
+                                 f"autograd ({worst})")
+
+
+def _hold_batched(what: str, a, b) -> float:
+    """Batched run ``a`` against sequential run ``b``: cycle, time and
+    volumes identical, ratios within one float32 ulp (the reference's own
+    batched program computes them as count × 1/total), acc within 1/512,
+    loss and params within 1e-4.  Returns the params' max |diff|."""
+    import numpy as np
+    for x, y in zip(a.history, b.history):
+        if (x["ratios"] != y["ratios"] and not np.allclose(
+                x["ratios"], y["ratios"], rtol=2 ** -23, atol=0)):
+            raise AssertionError(f"{what}: ratios differ: {x['ratios']} vs "
+                                 f"{y['ratios']}")
+    return _hold_paths(what, a, b, ("cycle", "time", "volumes"))
+
+
+def batched_path(st) -> dict:
+    """``BatchedFLRun(kernels="cuda").run_sync(2)`` for helios and syn on
+    the 2 + 2 fleet with the masked counters zeroed before and read after
+    each (6 client-axis launches a local step of each cohort, none on the
+    single-client entry), the vmapped step against plain autograd, parity
+    with the sequential plain path, and asyn / afo on the bucket engine."""
+    from repro_torch.federated import BatchedFLRun
+    from repro_torch.kernels import masked_matmul as K
+    steps = 5
+    total = {k: 0 for k in CLIENT_CALLS_PER_STEP}
+    runs = {}
+    for scheme, cohorts in (("helios", 2), ("syn", 1)):
+        K.reset_launches()
+        run = make_run(scheme, "cuda", st, engine=BatchedFLRun)
+        hist, wall = timed_run(run, 2)
+        got = _expect_client_launches(
+            f"batched {scheme}", 2 * steps * cohorts,
+            {"splitk": 4, "tile128": 2})
+        total = {k: total[k] + got[k] for k in total}
+        log(f"batched path {scheme}: 2 rounds in {wall:.3f} s (first run of "
+            f"the engine, vmap set-up included)")
+        for row in hist:
+            log("  history", json.dumps(row))
+        _finite(run, f"batched {scheme}")
+        runs[scheme] = run
+    strag = [r for c, r in zip(runs["helios"].clients,
+                               runs["helios"].history[-1]["ratios"])
+             if c.is_straggler]
+    if not strag or max(strag) >= 1.0:
+        raise AssertionError(f"batched helios straggler ratios not below 1: "
+                             f"{strag}")
+    check_batched_step(st, runs["helios"])
+    # the batched kernel path against the sequential plain path: the
+    # five-step drift beside the plain path's under a 2^-23 nudge, then two
+    # rounds of one local step held at 1e-4
+    for steps in (5, 1):
+        b = make_run("helios", "cuda", st, local_steps=steps,
+                     engine=BatchedFLRun)
+        plain, nudged = (make_run("helios", "reference", st,
+                                  local_steps=steps, nudge=nudge)
+                         for nudge in (0.0, 2.0 ** -23))
+        for run in (b, plain, nudged):
+            timed_run(run, 2)
+        log(f"batched helios 2 rounds x {steps} local steps: max|param diff|"
+            f" batched kernel vs sequential plain {_param_diff(b, plain):.3e},"
+            f" plain vs nudged plain {_param_diff(plain, nudged):.3e}")
+    diff = _hold_batched("batched helios", b, plain)
+    log(f"batched helios run_sync(2) x 1 local step held: {diff:.3e}")
+    # asyn / afo on the bucket engine against the sequential plain loop
+    for scheme in ("asyn", "afo"):
+        K.reset_launches()
+        a = make_run(scheme, "cuda", st, local_steps=1, engine=BatchedFLRun)
+        timed_async(a, 4)
+        got = _expect_client_launches(f"bucket engine {scheme}",
+                                      len(a.bucket_sizes),
+                                      {"splitk": 4, "tile128": 2})
+        total = {k: total[k] + got[k] for k in total}
+        s = make_run(scheme, "reference", st, local_steps=1)
+        timed_async(s, 4)
+        diff = _param_diff(a, s)
+        trained = sum(1 << (b - 1).bit_length() for b in a.bucket_sizes)
+        log(f"bucket engine {scheme} run_async(4) x 1 local step: buckets "
+            f"{a.bucket_sizes}, events {a.events_processed} (sequential "
+            f"{s.events_processed}; {trained} trained with the padding), "
+            f"max|param diff| vs the sequential plain loop {diff:.3e}; "
+            f"history {[r['cycle'] for r in a.history]}")
+        if a.events_processed != s.events_processed or not diff <= 1e-4:
+            raise AssertionError(f"bucket engine {scheme} drifts from the "
+                                 f"sequential loop: {diff}")
+    return total
+
+
+def time_batched_rounds(st) -> None:
+    """Whole helios rounds of the 2 + 2 fleet (5 local steps, no
+    evaluation) on ``FLRun`` and ``BatchedFLRun``, kernel and plain path,
+    in turns after a warm-up round; then one batched kernel-path round
+    under the profiler."""
+    from repro_torch.federated import BatchedFLRun, FLRun
+    walls = {}
+    for engine, kernels in ((FLRun, "cuda"), (BatchedFLRun, "cuda"),
+                            (BatchedFLRun, "reference"), (FLRun, "reference"),
+                            (FLRun, "reference"), (BatchedFLRun, "reference"),
+                            (BatchedFLRun, "cuda"), (FLRun, "cuda")):
+        run = make_run("helios", kernels, st, engine=engine)
+        timed_run(run, 1, eval_every=0)
+        _, wall = timed_run(run, 2, eval_every=0)
+        walls.setdefault(f"{engine.__name__} {kernels}", []).append(wall / 2)
+    log("round wall s helios 2 + 2 (2 rounds after a warm-up round): "
+        + json.dumps(walls))
+    run = make_run("helios", "cuda", st, engine=BatchedFLRun)
+    timed_run(run, 1, eval_every=0)
+    profile_round(run, "batched helios round (2 + 2)", host_top=10)
+
+
+def population_path(st) -> dict:
+    """Full-width AlexNet populations of 16 and 64 clients (half
+    stragglers, IID, helios, 1 local step of batch 16, lr 0.05): the round
+    wall of ``FLRun`` against ``BatchedFLRun`` on the kernel path and the
+    plain path after a warm-up round, the launches of a round, one profiled
+    batched round and its peak memory."""
+    from repro_torch.data.federated import partition_iid
+    from repro_torch.federated import BatchedFLRun, FLRun
+    from repro_torch.kernels import masked_matmul as K
+    cfg, hcfg, train, test, _ = st
+    out = {}
+    launched = {k: 0 for k in CLIENT_CALLS_PER_STEP}
+    for n in (16, 64):
+        pop = (cfg, hcfg, train, test,
+               partition_iid(len(train["labels"]), n))
+        kw = dict(fleet=(n - n // 2, n // 2), local_steps=1, batch_size=16)
+        walls = {}
+        for engine, kernels in ((FLRun, "cuda"), (BatchedFLRun, "cuda"),
+                                (BatchedFLRun, "reference"),
+                                (FLRun, "reference")):
+            run = make_run("helios", kernels, pop, engine=engine, **kw)
+            timed_run(run, 1, eval_every=0)               # warm-up round
+            K.reset_launches()
+            _, wall = timed_run(run, 1, eval_every=0)
+            name = f"{engine.__name__} {kernels}"
+            walls[name] = wall
+            single, client = sum(K.LAUNCHES.values()), \
+                sum(K.CLIENT_LAUNCHES.values())
+            log(f"population {n}: {name} round wall {wall:.4f} s, masked "
+                f"launches single-client {single}, client-axis {client}")
+            want = (0, 0) if kernels == "reference" else \
+                (6 * n, 0) if engine is FLRun else (0, 12)
+            if (single, client) != want:
+                raise AssertionError(f"population {n} {name}: launches "
+                                     f"{(single, client)}, want {want}")
+            launched = {k: launched[k] + v
+                        for k, v in K.CLIENT_LAUNCHES.items()}
+            _finite(run, f"population {n} {name}")
+        log(f"population {n} round walls s: {json.dumps(walls)}")
+        run = make_run("helios", "cuda", pop, engine=BatchedFLRun, **kw)
+        timed_run(run, 1, eval_every=0)
+        _free()
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_round(run, f"batched helios round of {n} clients",
+                             host_top=10)
+        log(f"population {n} batched round peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} GiB")
+        out[n] = {"walls": walls, **prof}
+        del run
+        _free()
+    out["launches"] = launched
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1668,6 +2109,13 @@ def main() -> int:
     time_rounds(st)
     async_launches = async_path(st)
     cohort_launches = cohort_path(six_client_setting(st))
+    client_worst = check_client_kernels()
+    batched_launches = batched_path(st)
+    time_batched_rounds(st)
+    population = population_path(st)
+    client_kernels = time_client_kernels(
+        client_worst, {"batched": batched_launches,
+                       "population": population["launches"]})
     del st
     _free()
     resnet_path()
@@ -1681,6 +2129,7 @@ def main() -> int:
                                    "async": async_launches,
                                    "cohort": cohort_launches,
                                    "lm": lm_launches}, lm_times)
+    kernels += client_kernels
     kernels.append(time_flash(flash_worst, lm_launches["flash_attention"],
                               lm_launches["flash_attention"] // 4))
     time_lm_round(lm_st)

@@ -4,7 +4,8 @@
 :func:`expand_masks` is driven by logical axes (the LM): a parameter whose
 axes carry several maskable unit axes gets the OUTER PRODUCT of the unit
 masks, and a parameter with none gets ones.  :func:`cnn_expand_masks` is
-the CNN testbed's prefix-keyed variant.
+the CNN testbed's prefix-keyed variant, and
+:func:`cnn_expand_masks_batch` its vmap over a stacked cohort.
 """
 from __future__ import annotations
 
@@ -89,9 +90,34 @@ def cnn_expand_masks(unit_masks: Dict[str, torch.Tensor],
     return out
 
 
+def cnn_expand_masks_batch(unit_masks: Dict[str, torch.Tensor],
+                           params: Dict[str, torch.Tensor]
+                           ) -> Dict[str, torch.Tensor]:
+    """``cnn_expand_masks`` over a stacked cohort: unit-mask leaves (C, L,
+    n), ``params`` the unstacked global template; leaves (C,) +
+    param.shape, ready for the stacked masked-mean aggregation."""
+    return torch.func.vmap(lambda um: cnn_expand_masks(um, params))(
+        unit_masks)
+
+
 def selected_fraction(unit_masks: Dict[str, torch.Tensor]) -> torch.Tensor:
     """r_n of Eq. 10: fraction of maskable units selected on this client
     (a device scalar: the hot loop does not wait for it)."""
     tot = sum(m.numel() for m in unit_masks.values())
     sel = sum(m.sum() for m in unit_masks.values())
     return sel / max(tot, 1)
+
+
+def selected_fractions(stacked_masks: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """(C,) r_n of a stacked cohort's unit masks (leaves (C, L, n)).
+
+    The count times the reciprocal of the total, in float32: the reference's
+    compiled round program computes it so (XLA turns the division by a
+    constant into that product), and the batched engine reports the same
+    ratios bit for bit.  It can differ from :func:`selected_fraction` in
+    the last bit.
+    """
+    tot = sum(m[0].numel() for m in stacked_masks.values())
+    sel = sum(m.sum(dim=tuple(range(1, m.dim())))
+              for m in stacked_masks.values())
+    return sel * torch.tensor(1.0 / max(tot, 1), dtype=torch.float32)

@@ -12,10 +12,16 @@ One Helios client's per-cycle flow:
 The state is a plain dict: tensors on the run's device, the volume as a
 float32 host scalar, and the client's key path (``core.keys``), split once
 per cycle exactly as the reference splits its PRNG key.
+
+A cohort's states stack along a leading client axis (``stack_states``):
+the tensors stack on the device, the volumes and cycle counters become
+host arrays and the key paths a list.  ``end_cycle`` runs on a stacked
+state as it is; ``begin_cycle`` runs client by client, because each
+client's draws are a host-named stream of its own.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -24,6 +30,7 @@ from repro_torch.configs.base import HeliosConfig
 from repro_torch.core import contribution as C
 from repro_torch.core import keys as KY
 from repro_torch.core import selection as S
+from repro_torch.models.module import tree_map
 
 
 def full_masks(schema: Dict[str, tuple], device) -> Dict[str, torch.Tensor]:
@@ -85,3 +92,31 @@ def cycle_scores(params_new, params_old, axes_tree,
 
 def set_volume(state: dict, volume: float) -> dict:
     return {**state, "volume": np.float32(volume)}
+
+
+# ---------------------------------------------------------------------------
+# batched (stacked-client) state
+# ---------------------------------------------------------------------------
+
+
+def _stack(*xs):
+    if torch.is_tensor(xs[0]):
+        return torch.stack(xs)
+    if isinstance(xs[0], KY.Key):
+        return list(xs)
+    return np.asarray(xs)               # volumes stay float32, cycles int
+
+
+def stack_states(states: Sequence[dict]) -> dict:
+    """Stack per-client states into one state with a leading client axis."""
+    return tree_map(_stack, *states)
+
+
+def unstack_states(stacked: dict, n: int) -> List[dict]:
+    """Inverse of ``stack_states``: n per-client state dicts."""
+    return [tree_map(lambda x: x[i], stacked) for i in range(n)]
+
+
+def set_volumes(stacked: dict, volumes: Sequence[float]) -> dict:
+    """Write the (C,) volumes of a stacked state."""
+    return {**stacked, "volume": np.asarray(volumes, np.float32)}

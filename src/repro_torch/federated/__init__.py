@@ -3,11 +3,12 @@ from repro_torch.federated.events import (ArrivalProcess, BernoulliDropout,
                                           JitteredArrival, SimClock)
 from repro_torch.federated.heterogeneity import (CAPABLE, TABLE_I, cycle_time,
                                                  make_fleet)
-from repro_torch.federated.runtime import Client, FLRun, setup_clients
+from repro_torch.federated.runtime import (AsyncFLRun, BatchedFLRun, Client,
+                                          FLRun, setup_clients)
 from repro_torch.federated.schemes import (SCHEMES, AfoScheme, AsynScheme,
                                            Scheme, make_scheme)
 
-__all__ = ["AfoScheme", "ArrivalProcess", "AsynScheme", "BernoulliDropout",
-           "CAPABLE", "Client", "DropoutProcess", "Event", "FLRun",
-           "JitteredArrival", "SCHEMES", "Scheme", "SimClock", "TABLE_I",
+__all__ = ["AfoScheme", "ArrivalProcess", "AsyncFLRun", "AsynScheme",
+           "BatchedFLRun", "BernoulliDropout", "CAPABLE", "Client",
+           "DropoutProcess", "Event", "FLRun", "JitteredArrival", "SCHEMES", "Scheme", "SimClock", "TABLE_I",
            "cycle_time", "make_fleet", "make_scheme", "setup_clients"]

@@ -54,6 +54,21 @@ class FamilyAdapter:
         return {k: torch.as_tensor(v[take]).to(self.device)
                 for k, v in data.items()}
 
+    def sample_cohort(self, rng: np.random.Generator,
+                      data: Dict[str, np.ndarray], idx_seq,
+                      local_steps: int, batch_size: int,
+                      pad_to: int = 0) -> dict:
+        """Per-client batches drawn in cohort order, stacked along a leading
+        client axis.  Padding slots (up to ``pad_to``: the async engine's
+        power-of-two buckets) repeat the first client's draw WITHOUT
+        consuming the host RNG, so the padded engine stays draw for draw
+        with the sequential one; engines give padding slots zero weight."""
+        per = [self.sample_batch(rng, data, idx, local_steps, batch_size)
+               for idx in idx_seq]
+        if pad_to and pad_to > len(per):
+            per = per + [per[0]] * (pad_to - len(per))
+        return {k: torch.stack([b[k] for b in per]) for k in per[0]}
+
     def eval_slice(self, data: Dict[str, np.ndarray], lo: int,
                    hi: int) -> dict:
         return {k: torch.as_tensor(v[lo:hi]).to(self.device)
@@ -94,6 +109,10 @@ class CNNAdapter(FamilyAdapter):
 
     def expand_masks(self, unit_masks, params):
         return MK.cnn_expand_masks(unit_masks, params)
+
+    def expand_masks_batch(self, unit_masks, params):
+        """``expand_masks`` over a stacked cohort (leading client axis)."""
+        return MK.cnn_expand_masks_batch(unit_masks, params)
 
 
 class TokenLMAdapter(FamilyAdapter):

@@ -1,5 +1,5 @@
 # repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
-"""The sequential federated engine: ``FLRun.run_sync`` and ``run_async``.
+"""Federated round engines: ``FLRun``, ``AsyncFLRun`` and ``BatchedFLRun``.
 
 The algorithm lives behind :mod:`repro_torch.federated.schemes`; this module
 owns execution.  Time is simulated (``heterogeneity.cycle_time``,
@@ -14,6 +14,23 @@ real tensors on the run's device.
   event, trained from the snapshot of the global the client last pulled and
   mixed into the current global on arrival.
 * ``add_client`` / ``remove_client``: §VI.C elastic membership.
+
+Every sync engine runs the one host protocol of :meth:`FLRun.run_sync`
+and overrides its hooks (``_train_cohort``, ``_write_volumes``,
+``_finish_sync``), never the loop:
+
+* :class:`FLRun` — the sequential reference: one local training per
+  client, one event at a time in ``run_async``.
+* :class:`AsyncFLRun` — the bucketed async engine (asyn / afo, CNN
+  testbed): a bucket of equal-time completions trains under one
+  ``torch.func.vmap`` from the rows of a device-side snapshot ring and is
+  mixed in event order.  Same seed, same global-param trajectory as
+  ``FLRun.run_async`` up to rounding.
+* :class:`BatchedFLRun` — the batched sync engine (CNN testbed): a round
+  runs the soft-training stragglers and the capable clients as two
+  cohorts, each local step of a cohort one vmapped step whose masked
+  products are one kernel launch for the whole cohort.  Inherits the
+  bucketed async path.
 
 The loops never wait for the device except in ``evaluate`` and the history
 row behind the eval gate.
@@ -35,7 +52,8 @@ from repro_torch.core.identification import (DeviceProfile,
                                              identify_resource_based,
                                              identify_time_based)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.federated.adapter import FamilyAdapter, make_adapter
+from repro_torch.federated.adapter import (CNNAdapter, FamilyAdapter,
+                                           make_adapter)
 from repro_torch.federated.events import (ArrivalProcess, DropoutProcess,
                                           SimClock)
 from repro_torch.federated.heterogeneity import cycle_time
@@ -46,6 +64,10 @@ from repro_torch.models.module import (tree_leaves, tree_map, tree_paths,
                                        unflatten)
 from repro_torch.obs.recorder import Recorder
 from repro_torch.optim import apply_updates, make_optimizer
+
+#: most events a bucket of the async engine trains at once: bounds the
+#: memory of the vmapped local training
+MAX_BUCKET = 128
 
 
 def _make_local_train(adapter: FamilyAdapter, opt):
@@ -72,6 +94,37 @@ def _make_local_train(adapter: FamilyAdapter, opt):
             # this step's before the next one's backward allocates its own
             del grads, updates
         return params, torch.stack(losses).mean()
+
+    return local_train
+
+
+def _make_batched_local_train(adapter: FamilyAdapter, opt):
+    """A cohort's E masked local SGD steps: each step's losses and gradients
+    for every client under one ``torch.func.vmap`` of ``grad_and_value``
+    (the reference vmaps its ``lax.scan``), the momentum update on the
+    stacked trees.  ``params`` and ``masks`` either carry a leading client
+    axis or are shared by the cohort (``stacked_params`` /
+    ``stacked_masks`` False: the global params of a round's first step, a
+    capable cohort's full masks); ``batches`` leaves are (C, E, ...).
+    Returns (stacked params, (C,) mean losses as device values)."""
+    step = torch.func.grad_and_value(adapter.loss_fn)
+
+    def local_train(params, batches, masks, stacked_params: bool,
+                    stacked_masks: bool):
+        opt_state = opt.init(params)
+        m_dim = 0 if stacked_masks else None
+        losses = []
+        for i in range(next(iter(batches.values())).shape[1]):
+            batch = {k: v[:, i] for k, v in batches.items()}
+            grads, loss = torch.func.vmap(
+                step, in_dims=(0 if stacked_params else None, 0, m_dim))(
+                    params, batch, masks)
+            updates, opt_state = opt.update(grads, opt_state, params, 0)
+            params = apply_updates(params, updates)
+            stacked_params = True
+            losses.append(loss)
+            del grads, updates
+        return params, torch.stack(losses).mean(dim=0)
 
     return local_train
 
@@ -206,6 +259,11 @@ class FLRun:
         return self.rec.count("snapshot_anchor_misses")
 
     # -- one client's cycle ------------------------------------------------
+    def _sample_batches(self, client: Client) -> dict:
+        return self.adapter.sample_batch(self.rng, self.train_data,
+                                         client.data_idx, self.local_steps,
+                                         self.batch_size)
+
     def _client_masks(self, client: Client) -> dict:
         if self._scheme.soft_training and client.is_straggler:
             return client.helios_state["masks"]
@@ -219,9 +277,7 @@ class FLRun:
         if soft:
             client.helios_state = ST.begin_cycle(client.helios_state, hcfg)
         masks = self._client_masks(client)
-        batches = self.adapter.sample_batch(
-            self.rng, self.train_data, client.data_idx, self.local_steps,
-            self.batch_size)
+        batches = self._sample_batches(client)
         new_params, loss = self._local_train(base_params, batches, masks)
         if soft:
             if sch.use_delta_scores:
@@ -302,15 +358,26 @@ class FLRun:
 
     def _adapt_volumes(self, cohort: List[int], cclients: List[Client],
                        times: List[float], pace: float) -> None:
-        """Move straggler volumes toward the collaboration pace (§IV.C)."""
+        """Move straggler volumes toward the collaboration pace (§IV.C); the
+        write into the Helios state is the engine's (``_write_volumes``)."""
         if not (self._scheme.adapt_volume and self.hcfg.adapt_volume):
             return
-        for c, t in zip(cclients, times):
-            if c.is_straggler:
-                c.volume = VOL.adapt_volume(c.volume, t, pace,
-                                            self.hcfg.adapt_gain,
-                                            self.hcfg.min_volume)
-                c.helios_state = ST.set_volume(c.helios_state, c.volume)
+        upd = [j for j, c in enumerate(cclients) if c.is_straggler]
+        for j in upd:
+            c = cclients[j]
+            c.volume = VOL.adapt_volume(c.volume, times[j], pace,
+                                        self.hcfg.adapt_gain,
+                                        self.hcfg.min_volume)
+        if upd:
+            self._write_volumes(cclients, upd)
+
+    def _write_volumes(self, cclients: List[Client], upd: List[int]) -> None:
+        for j in upd:
+            cclients[j].helios_state = ST.set_volume(
+                cclients[j].helios_state, cclients[j].volume)
+
+    def _finish_sync(self) -> None:
+        pass
 
     def _record_round(self, r: int, rounds: int, eval_every: int,
                       clock: float, losses, ratios) -> None:
@@ -347,6 +414,7 @@ class FLRun:
             clock += self._scheme.round_duration(times, cclients)
             self.round += 1
             self._record_round(r, rounds, eval_every, clock, losses, ratios)
+        self._finish_sync()
         return self.history
 
     # -- the async event loop ----------------------------------------------
@@ -466,6 +534,325 @@ class FLRun:
     def remove_client(self, cid: int) -> None:
         """A device leaves: it drops out of the next aggregation."""
         self.clients = [c for c in self.clients if c.cid != cid]
+
+
+class AsyncFLRun(FLRun):
+    """Bucketed event engine for the async schemes (asyn / afo) on the CNN
+    testbed.
+
+    The event semantics are ``FLRun.run_async``'s, executed in bulk:
+
+    * the event core (:class:`SimClock`) pops a bucket of exactly one
+      equal-time group of completions (at most :data:`MAX_BUCKET`), which
+      cannot reorder events against the sequential loop, since a client's
+      next completion is strictly later than its current one;
+    * each event trains from its own anchor, a row of a device-side
+      :class:`core.aggregation.SnapshotRing`, and the whole bucket's local
+      training runs as one vmapped training (anchors predate the bucket);
+    * the mixes fold over the bucket in event order
+      (:func:`core.aggregation.mix_bucket_ring`), each post-mix global
+      written to the ring row its client re-anchors to;
+    * buckets are padded to the next power of two (padding repeats slot 0's
+      batch without a host draw, mixes at weight 0 and writes the ring's
+      scratch row), as in the reference.
+
+    Batch, arrival and dropout draws, anchoring and mixing order replay
+    the sequential loop, so a fixed seed gives the same global params up to
+    rounding.  History is recorded at most once per bucket, after its
+    mixes (``record_cadence: "bucket"``), where the sequential loop records
+    at every ``eval_every``-th capable completion.  Schemes that are not
+    async-native (per-event soft-training state) run the sequential loop,
+    as in the reference.
+    """
+
+    def __post_init__(self):
+        super().__post_init__()
+        if not isinstance(self.adapter, CNNAdapter):
+            raise NotImplementedError(
+                f"{type(self).__name__} runs the CNN testbed only: the "
+                f"{self.cfg.family!r} family needs vmap rules for its "
+                "flash_attention / ssd_diag Functions (ROADMAP.md item 19)")
+        #: one tensor per key for the whole run, so the kernels' live tables
+        #: of a capable cohort are built once
+        self._ones = ST.full_masks(self.adapter.schema, self.device)
+        self._train_batched = _make_batched_local_train(self.adapter,
+                                                        self.opt)
+
+    def _bucket(self, ring: AG.SnapshotRing, base_slots: List[int],
+                write_slots: List[int], batches: dict, stales: List[int],
+                b: int, mix_weight: float, staleness_a: float):
+        """One bucket of ``len(base_slots)`` events (the first ``b`` real):
+        train every event from its anchor row, then mix in event order.
+        Returns the (B,) losses as device values."""
+        dev = self.device
+        idx = torch.as_tensor(base_slots, device=dev)
+        base = tree_map(lambda r: r.index_select(0, idx), ring.params)
+        trained, losses = self._train_batched(base, batches, self._ones,
+                                              True, False)
+        w = torch.full((len(base_slots),), float(mix_weight), device=dev)
+        if self._scheme.staleness_discount:
+            w = w * AG.staleness_weights(
+                torch.as_tensor(stales, dtype=torch.float32, device=dev),
+                staleness_a)
+        w = w * torch.as_tensor([1.0] * b + [0.0] * (len(base_slots) - b),
+                                device=dev)
+        self.global_params, ring.params = AG.mix_bucket_ring(
+            self.global_params, ring.params, write_slots, trained, w)
+        return losses
+
+    def run_async(self, capable_cycles: int, mix_weight: float = 0.5,
+                  staleness_a: float = 0.5, eval_every: int = 1,
+                  snapshot_cap: int = 64) -> List[dict]:
+        if not self._scheme.async_native:
+            return super().run_async(capable_cycles, mix_weight,
+                                     staleness_a, eval_every, snapshot_cap)
+        clock = SimClock()
+        self._reset_async_processes()
+        by_id = {c.cid: c for c in self.clients}
+        ring = AG.SnapshotRing(self.global_params, snapshot_cap,
+                               len(self.clients))
+        for c in self.clients:
+            c.staleness_anchor = 0
+            ring.alloc.retain(0)
+            clock.schedule(self._next_delay(c), c.cid)
+        for name in ("agg_counter", "events_processed", "events_dropped"):
+            self.rec.set(name, 0)
+        self.bucket_sizes: List[int] = []
+        done_fast = 0
+        next_rec = eval_every if eval_every > 0 else 0
+        while done_fast < capable_cycles and not clock.empty():
+            evs = clock.pop_bucket(0.0, MAX_BUCKET)
+            # dropout draws and the capable budget, in event order: the
+            # sequential loop stops mid-group when the budget runs out, so
+            # the bucket cuts at the same event and puts the tail back
+            exec_evs, drop_cids = [], set()
+            budget = capable_cycles - done_fast
+            cut = None
+            for i, ev in enumerate(evs):
+                if self.dropout is not None and self.dropout.drops(ev.cid):
+                    drop_cids.add(ev.cid)
+                    continue
+                exec_evs.append(ev)
+                if not by_id[ev.cid].is_straggler:
+                    budget -= 1
+                    if budget == 0:
+                        cut = i + 1
+                        break
+            handled = evs if cut is None else evs[:cut]
+            for ev in evs[len(handled):]:
+                clock.schedule_at(ev.time, ev.cid)
+            b = len(exec_evs)
+            if b:
+                bpad = 1 << (b - 1).bit_length()
+                batches = self.adapter.sample_cohort(
+                    self.rng, self.train_data,
+                    [by_id[ev.cid].data_idx for ev in exec_evs],
+                    self.local_steps, self.batch_size, pad_to=bpad)
+                agg0 = self.agg_counter
+                base_slots, write_slots, stales = [], [], []
+                for i, ev in enumerate(exec_evs):
+                    c = by_id[ev.cid]
+                    base_slots.append(ring.alloc.slot_of(c.staleness_anchor))
+                    stales.append(agg0 + i - c.staleness_anchor)
+                    ring.alloc.release(c.staleness_anchor)
+                    write_slots.append(ring.alloc.alloc(agg0 + i + 1))
+                    ring.alloc.retain(agg0 + i + 1)
+                    c.staleness_anchor = agg0 + i + 1
+                self.rec.set("agg_counter", agg0 + b)
+                pad = bpad - b
+                losses = self._bucket(
+                    ring, base_slots + [0] * pad,
+                    write_slots + [ring.scratch] * pad, batches,
+                    stales + [0] * pad, b, mix_weight, staleness_a)
+                self.rec.inc("uplink_updates", b)
+                self.rec.inc("events_processed", b)
+                self.rec.inc("downlink_updates", b)   # per-event ring pulls
+                self.bucket_sizes.append(b)
+                done_fast += sum(not by_id[ev.cid].is_straggler
+                                 for ev in exec_evs)
+            # every handled event rescheduled in event order (the arrival
+            # stream's order in the sequential loop)
+            for ev in handled:
+                delay = self._next_delay(by_id[ev.cid])
+                if ev.cid in drop_cids:
+                    delay *= self.dropout.penalty
+                clock.schedule_at(ev.time + delay, ev.cid)
+            self.rec.inc("events_dropped", len(drop_cids))
+            if next_rec and b and done_fast >= next_rec:
+                self.history.append({
+                    "scheme": self.scheme, "cycle": done_fast,
+                    "time": clock.now,
+                    "record_cadence": "bucket",
+                    self.adapter.metric_name: self.evaluate(),
+                    # behind the eval gate: evaluate() just synced
+                    "loss": float(losses[:b].mean()),  # repro: noqa[R3]
+                    "staleness": float(np.mean(stales)),
+                    "bucket": b,
+                    "downlink_mb": self.downlink_bytes() / 1e6})
+                next_rec = (done_fast // eval_every + 1) * eval_every
+        self.rec.set("snapshot_peak", ring.alloc.peak_live)
+        self.rec.set("snapshot_anchor_misses", ring.alloc.anchor_misses)
+        self.rec.set("queue_peak", clock.peak_depth)
+        return self.history
+
+
+class BatchedFLRun(AsyncFLRun):
+    """Batched sync engine: a round as one vmapped training per cohort.
+
+    Clients split into two cohorts, so each cohort's control flow is
+    uniform: the soft-training stragglers (Eq. 2 selection, masked local
+    training, Eq. 1 scores, all under their per-client Helios state stacked
+    along a leading client axis) and the capable clients (full-model local
+    training from the shared global params).  Each local step of a cohort
+    is one vmapped step, so the masked kernels launch once a step per
+    cohort, whatever the cohort's size.  Eq. 2 selection runs client by
+    client (each client's draws are a host-named stream); the Eq. 10 /
+    masked-mean aggregation runs over the stacked rows in the original
+    client order.  Batch draws replay the sequential engine's client order,
+    so a fixed seed gives its trajectory up to rounding.
+
+    Under full participation the stacked straggler state persists between
+    rounds (``sync_client_states`` writes it back into each client's
+    ``helios_state``, as every ``run_sync`` does at its end); a sampled
+    cohort stacks and unstacks its members' states each round.  The async
+    schemes run on the inherited bucketed engine.
+    """
+
+    def __post_init__(self):
+        super().__post_init__()
+        self._build_batched()
+
+    def _split(self, clients: Sequence[Client]):
+        """(straggler positions, capable positions, the permutation that
+        puts the two cohorts' rows back into ``clients`` order)."""
+        soft = self._scheme.soft_training
+        s_pos = [j for j, c in enumerate(clients) if soft and c.is_straggler]
+        c_pos = [j for j, c in enumerate(clients)
+                 if not (soft and c.is_straggler)]
+        unperm = torch.as_tensor(np.argsort(np.asarray(s_pos + c_pos)),
+                                 device=self.device)
+        return s_pos, c_pos, unperm
+
+    def _build_batched(self) -> None:
+        self._s_idx, self._c_idx, self._unperm = self._split(self.clients)
+        # sampled cohorts change membership each round: each client's
+        # helios_state stays the state of record (_train_cohort stacks them)
+        self._sstate = None if self.participation or not self._s_idx else \
+            ST.stack_states([self.clients[i].helios_state
+                             for i in self._s_idx])
+
+    def _round(self, sstate, s_batch, c_batch, unperm):
+        """Both cohorts' cycles and the aggregation.  Returns (the new
+        stacked straggler state, losses, ratios), rows in client order."""
+        sch, g = self._scheme, self.global_params
+        hcfg = sch.effective_hcfg(self.hcfg)
+        parts_p, parts_r, parts_l, parts_m = [], [], [], []
+        if sstate is not None:
+            n_s = len(sstate["rng"])
+            sstate = ST.stack_states([ST.begin_cycle(st, hcfg) for st in
+                                      ST.unstack_states(sstate, n_s)])
+            masks = sstate["masks"]
+            p, loss = self._train_batched(g, s_batch, masks, False, True)
+            if sch.use_delta_scores:
+                scores = torch.func.vmap(
+                    lambda pp: self.adapter.cycle_scores(pp, g))(p)
+            else:                                          # random [12]
+                scores = sstate["scores"]
+            sstate = ST.end_cycle(sstate, scores, hcfg)
+            parts_p.append(p)
+            parts_r.append(MK.selected_fractions(masks))
+            parts_l.append(loss)
+            parts_m.append(masks)
+        if c_batch is not None:
+            n_c = next(iter(c_batch.values())).shape[0]
+            p, loss = self._train_batched(g, c_batch, self._ones, False,
+                                          False)
+            parts_p.append(p)
+            parts_r.append(torch.ones(n_c, device=self.device))
+            parts_l.append(loss)
+            parts_m.append(tree_map(lambda v: v.expand(n_c, *v.shape),
+                                    self._ones))
+
+        def cat(parts):
+            return tree_map(lambda *xs: torch.cat(xs).index_select(0, unperm),
+                            *parts)
+
+        stacked, ratios, losses = cat(parts_p), cat(parts_r), cat(parts_l)
+        mode = sch.agg_mode(self.hcfg)
+        pmasks = self.adapter.expand_masks_batch(cat(parts_m), g) \
+            if mode == "masked_mean" else None
+        self.global_params = AG.aggregate_stacked(mode, g, stacked, ratios,
+                                                  pmasks)
+        return sstate, losses, ratios
+
+    def _train_cohort(self, cohort: List[int], cclients: List[Client]):
+        """Both cohorts of the drawn clients, batches drawn in cohort order
+        (the sequential engine's draw order).  Under sampling the members'
+        states are stacked for the round and written back after it."""
+        if self.participation:
+            s_pos, c_pos, unperm = self._split(cclients)
+            sstate = ST.stack_states([cclients[j].helios_state
+                                      for j in s_pos]) if s_pos else None
+        else:
+            s_pos, c_pos, unperm = self._s_idx, self._c_idx, self._unperm
+            sstate = self._sstate
+        per = [self._sample_batches(c) for c in cclients]
+
+        def stack(pos):
+            return {k: torch.stack([per[j][k] for j in pos])
+                    for k in per[0]} if pos else None
+
+        sstate, losses, ratios = self._round(sstate, stack(s_pos),
+                                             stack(c_pos), unperm)
+        if self.participation:
+            for j, st in zip(s_pos, ST.unstack_states(sstate, len(s_pos))
+                             if s_pos else ()):
+                cclients[j].helios_state = st
+        else:
+            self._sstate = sstate
+        # device values: _record_round converts them behind the eval gate
+        return list(losses.unbind()), list(ratios.unbind())
+
+    def _write_volumes(self, cclients: List[Client], upd: List[int]) -> None:
+        if self.participation:
+            super()._write_volumes(cclients, upd)
+        elif self._s_idx:
+            self._sstate = ST.set_volumes(
+                self._sstate, [self.clients[i].volume for i in self._s_idx])
+
+    def _finish_sync(self) -> None:
+        # callers that inspect clients never see round-0 state
+        self.sync_client_states()
+
+    def run_async(self, *args, **kwargs) -> List[dict]:
+        if self._scheme.async_native:
+            return super().run_async(*args, **kwargs)      # bucketed engine
+        # the sequential event loop (through AsyncFLRun) evolves each
+        # client's helios_state: write the stacked state back, run, restack
+        self.sync_client_states()
+        hist = super().run_async(*args, **kwargs)
+        self._build_batched()
+        return hist
+
+    def sync_client_states(self) -> None:
+        """Write the stacked straggler state back into each client's
+        ``helios_state``."""
+        if self._sstate is not None:
+            for i, st in zip(self._s_idx, ST.unstack_states(
+                    self._sstate, len(self._s_idx))):
+                self.clients[i].helios_state = st
+
+    def add_client(self, profile: DeviceProfile, data_idx: np.ndarray,
+                   white_box: bool = True) -> Client:
+        self.sync_client_states()
+        c = super().add_client(profile, data_idx, white_box)
+        self._build_batched()                 # the cohorts changed
+        return c
+
+    def remove_client(self, cid: int) -> None:
+        self.sync_client_states()
+        super().remove_client(cid)
+        self._build_batched()
 
 
 def setup_clients(profiles: Sequence[DeviceProfile],

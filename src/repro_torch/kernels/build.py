@@ -85,12 +85,19 @@ def _finish(name: str, job) -> None:
 
 def build(names: Sequence[str]) -> None:
     """Compile every named source that is not built yet, all nvcc processes
-    started together."""
+    started together; every one has ended when this returns or raises the
+    first failure."""
     with _LOCK:
         jobs = {n: _start(n) for n in names}
+        failed = None
         for n, job in jobs.items():
             if job is not None:
-                _finish(n, job)
+                try:
+                    _finish(n, job)
+                except RuntimeError as e:
+                    failed = failed or e
+        if failed is not None:
+            raise failed
 
 
 def library(name: str) -> ctypes.CDLL:

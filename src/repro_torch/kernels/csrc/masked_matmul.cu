@@ -58,6 +58,25 @@
 //
 // The three share the column-tile map (col_tile), the contraction walk
 // (KWalk) and the widen / store helpers.  No wgmma or TMA yet.
+//
+// The client axis (helios_masked_matmul_clients / _dk_clients) is the
+// counterpart of the Pallas pair under jax.vmap, where pallas_call's
+// batching rule runs one launch for a whole cohort, each client with its own
+// alive flags.  y[c] = x[c] @ w[c] for c < C, with client c's dead blocks
+// skipped: the same tiles, instantiated with CLIENTS = true, on a grid
+// whose x dimension is C · tiles_m (blockIdx.x = c · tiles_m + row tile, so
+// neither 65535 limit of y and z binds the cohort).  Client c reads
+// x + c·scx, w + c·scw (a stride of 0 shares one operand with the whole
+// cohort), writes y + c·M·N, and walks row c of a (C, nb) table of live
+// block indices (ascending, counts[c] of them); the grid's column tiles
+// cover every block a client could have, and a tile past its client's count
+// exits.  The split-K workspace is (S, C, M, N), summed in fixed order as in
+// the single-client reduce.  The client axis's own operands (Cohort) are a
+// second kernel parameter, which the CLIENTS = false instantiations never
+// read, and they never write Operands or reference it mutably: they compile
+// to the single-client kernels as they were.  (Client fields inside
+// Operands, written through a mutable reference, cut the single-client f32
+// split-K kernels from 158 to 128 registers, 14 % slower on an H100.)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,10 +116,34 @@ struct Operands {
                        // live blocks (dk kernel)
 };
 
+// The client axis: client c reads x + c·scx, w + c·scw, writes y + c·m·n
+// and its workspace rows, and walks live + c·sl with counts[c·scn] entries.
+struct Cohort {
+  const int* counts;
+  long long scx, scw, sl, scn;
+  int clients;         // C (1 for the single-client entry points)
+  int tiles_m;         // row tiles a client: blockIdx.x = c·tiles_m + tile
+};
+
+// Client c's view of the operands (blockIdx.x names the client and its row
+// tile); returns the row tile.  Called by the CLIENTS instantiations only.
+template <typename T>
+__device__ __forceinline__ int client_view(Operands& op, const Cohort& co) {
+  const int c = blockIdx.x / co.tiles_m;
+  op.x = static_cast<const T*>(op.x) + c * co.scx;
+  op.w = static_cast<const T*>(op.w) + c * co.scw;
+  op.y = static_cast<T*>(op.y) + c * op.m * op.n;
+  if (op.ws) op.ws += c * op.m * op.n;   // split z then adds z·C·m·n
+  op.live += c * co.sl;
+  op.n_live = co.counts[c * co.scn];
+  return blockIdx.x % co.tiles_m;
+}
+
 // Output columns [n0, n1) of column tile t, TN wide.  SKIP_K (dk): every
 // tile of N.  Otherwise the tiles walk the live mask blocks, ceil(block/TN)
-// tiles a block; false for a tile past a ragged block or past N.
-template <int TN, bool SKIP_K>
+// tiles a block; false for a tile past a ragged block or past N, and
+// (CLIENTS) for a tile past its client's live count.
+template <int TN, bool SKIP_K, bool CLIENTS = false>
 __device__ __forceinline__ bool col_tile(const Operands& op, int t, long long& n0,
                                          long long& n1) {
   if (SKIP_K) {
@@ -108,6 +151,7 @@ __device__ __forceinline__ bool col_tile(const Operands& op, int t, long long& n
     n1 = min(n0 + TN, op.n);
   } else {
     const int per = (op.block + TN - 1) / TN;
+    if (CLIENTS && t / per >= op.n_live) return false;
     const long long b0 = static_cast<long long>(op.live[t / per]) * op.block;
     n0 = b0 + static_cast<long long>(t % per) * TN;
     n1 = min(min(n0 + TN, b0 + op.block), op.n);
@@ -203,8 +247,8 @@ __device__ __forceinline__ void w_elem(bool w_rows, int i, int& r, int& c) {
   }
 }
 
-template <typename T, bool SKIP_K>
-__global__ void __launch_bounds__(GTHREADS) masked_mm_kernel(Operands op) {
+template <typename T, bool SKIP_K, bool CLIENTS>
+__global__ void __launch_bounds__(GTHREADS) masked_mm_kernel(Operands op, Cohort co) {
   // Double-buffered stages.  f32: each element copied by a 4-byte cp.async
   // one stage ahead.  bf16 (widened on load): read into registers one stage
   // ahead, then stored.  (On the H100 the f32 copies measured faster than
@@ -214,12 +258,14 @@ __global__ void __launch_bounds__(GTHREADS) masked_mm_kernel(Operands op) {
   __shared__ __align__(16) float xs[GSTAGES][BK][XROW];
   __shared__ __align__(16) float ws[GSTAGES][BK][WROW];
   constexpr int XL = BM * BK / GTHREADS, WL = BK * BN / GTHREADS;
+  int tile_m = blockIdx.x;
+  if constexpr (CLIENTS) tile_m = client_view<T>(op, co);
   const T* __restrict__ x = static_cast<const T*>(op.x);
   const T* __restrict__ w = static_cast<const T*>(op.w);
   const int tid = threadIdx.x;
-  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
+  const long long m0 = static_cast<long long>(tile_m) * BM;
   long long n0, n1;
-  if (!col_tile<BN, SKIP_K>(op, blockIdx.y, n0, n1)) return;   // uniform
+  if (!col_tile<BN, SKIP_K, CLIENTS>(op, blockIdx.y, n0, n1)) return;   // uniform
   const KWalk<BK, SKIP_K> kw(op, blockIdx.z);
   const int n_stages = kw.stages;
   const bool x_rows = op.sxk == 1, w_rows = op.swn == 1;
@@ -314,7 +360,9 @@ __global__ void __launch_bounds__(GTHREADS) masked_mm_kernel(Operands op) {
     }
   }
   // split-K: the partial tile goes to the split's workspace slab, in f32
-  float* part = op.ws ? op.ws + static_cast<long long>(blockIdx.z) * op.m * op.n : nullptr;
+  float* part = op.ws ? op.ws + static_cast<long long>(blockIdx.z) * (CLIENTS ? co.clients : 1) *
+                                    op.m * op.n
+                      : nullptr;
   T* y = static_cast<T*>(op.y);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -345,17 +393,22 @@ __device__ __forceinline__ bool is_live(const Operands& op, long long b) {
 
 // y[r, n] = Σ_s ws[s, r, n] over the splits in order; the column kernel's
 // dead columns are written 0 here (y is not zero-filled).  One thread an
-// element.
-template <typename T, bool SKIP_K>
-__global__ void __launch_bounds__(THREADS) splitk_reduce(Operands op) {
+// element (CLIENTS: of y[c, r, n], from client c's live list).
+template <typename T, bool SKIP_K, bool CLIENTS>
+__global__ void __launch_bounds__(THREADS) splitk_reduce(Operands op, Cohort co) {
   const long long i = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  if (i >= op.m * op.n) return;
+  if (i >= (CLIENTS ? co.clients : 1) * op.m * op.n) return;
   T* y = static_cast<T*>(op.y) + i;
+  if constexpr (CLIENTS && !SKIP_K) {   // element i is client c's
+    const long long c = i / (op.m * op.n);
+    op.live += c * co.sl;
+    op.n_live = co.counts[c * co.scn];
+  }
   if (!SKIP_K && !is_live(op, (i % op.n) / op.block)) {
     store(y, 0.f);
     return;
   }
-  const long long slab = op.m * op.n;
+  const long long slab = (CLIENTS ? co.clients : 1) * op.m * op.n;
   float s = op.ws[i];
 #pragma unroll 8
   for (int z = 1; z < op.splits; ++z) s += op.ws[z * slab + i];   // loads run ahead
@@ -388,20 +441,22 @@ constexpr int LPR = 2;   // 2 and 4 measured alike; 2 stores without bank confli
 // A_CP: x is column-major (m contiguous) and is copied with cp.async; else
 // x is row-major and staged through registers.  B_CP: w is row-major (n
 // contiguous) and copied with cp.async; else column-major, through registers.
-template <bool A_CP, bool B_CP, bool SKIP_K>
-__global__ void __launch_bounds__(THREADS, 2) masked_mm_tile128(Operands op) {
+template <bool A_CP, bool B_CP, bool SKIP_K, bool CLIENTS>
+__global__ void __launch_bounds__(THREADS, 2) masked_mm_tile128(Operands op, Cohort co) {
   extern __shared__ __align__(16) float smem[];
   float* const as = smem;                        // [STAGES][LBK][LROW]
   float* const bs = smem + STAGES * LSTAGE;
-  const float* __restrict__ x = static_cast<const float*>(op.x);
-  const float* __restrict__ w = static_cast<const float*>(op.w);
-  const int tid = threadIdx.x;
   // tile coordinates fit in 32 bits (each below a tensor dim); only the
   // address products are 64-bit, which keeps the kernel within its 128
   // registers
-  const int m0 = blockIdx.x * LBM;
+  int tile_m = blockIdx.x;
+  if constexpr (CLIENTS) tile_m = client_view<float>(op, co);
+  const float* __restrict__ x = static_cast<const float*>(op.x);
+  const float* __restrict__ w = static_cast<const float*>(op.w);
+  const int tid = threadIdx.x;
+  const int m0 = tile_m * LBM;
   long long tile_n0, tile_n1;
-  if (!col_tile<LBN, SKIP_K>(op, blockIdx.y, tile_n0, tile_n1)) return;   // uniform
+  if (!col_tile<LBN, SKIP_K, CLIENTS>(op, blockIdx.y, tile_n0, tile_n1)) return;   // uniform
   const int n0 = static_cast<int>(tile_n0), n1 = static_cast<int>(tile_n1);
   const int m = static_cast<int>(op.m);
   const KWalk<LBK, SKIP_K> kw(op, 0);
@@ -542,8 +597,9 @@ __global__ void __launch_bounds__(THREADS, 2) masked_mm_tile128(Operands op) {
   }
 }
 
-template <bool A_CP, bool B_CP, bool SKIP_K>
-cudaError_t launch_tile128_as(const Operands& op, dim3 grid, cudaStream_t stream) {
+template <bool A_CP, bool B_CP, bool SKIP_K, bool CLIENTS>
+cudaError_t launch_tile128_as(const Operands& op, const Cohort& co, dim3 grid,
+                              cudaStream_t stream) {
   // A ring above 48 KB needs the opt-in, made once per device and kept
   // off the launch path.
   constexpr int kDevices = 64;
@@ -553,55 +609,65 @@ cudaError_t launch_tile128_as(const Operands& op, dim3 grid, cudaStream_t stream
   if (rc != cudaSuccess) return rc;
   if (dev < 0 || dev >= kDevices) return cudaErrorInvalidDevice;
   if (!opted[dev]) {
-    rc = cudaFuncSetAttribute(masked_mm_tile128<A_CP, B_CP, SKIP_K>,
+    rc = cudaFuncSetAttribute(masked_mm_tile128<A_CP, B_CP, SKIP_K, CLIENTS>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(LSMEM));
     if (rc != cudaSuccess) return rc;
     opted[dev] = true;
   }
-  masked_mm_tile128<A_CP, B_CP, SKIP_K><<<grid, THREADS, LSMEM, stream>>>(op);
+  masked_mm_tile128<A_CP, B_CP, SKIP_K, CLIENTS><<<grid, THREADS, LSMEM, stream>>>(op, co);
   return cudaGetLastError();
 }
 
-template <bool SKIP_K>
-cudaError_t launch_tile128(const Operands& op, dim3 grid, cudaStream_t stream) {
+template <bool SKIP_K, bool CLIENTS>
+cudaError_t launch_tile128(const Operands& op, const Cohort& co, dim3 grid,
+                           cudaStream_t stream) {
   const bool a_cp = op.sxm == 1, b_cp = op.swn == 1;
-  if (a_cp && b_cp) return launch_tile128_as<true, true, SKIP_K>(op, grid, stream);
-  if (a_cp) return launch_tile128_as<true, false, SKIP_K>(op, grid, stream);
-  if (b_cp) return launch_tile128_as<false, true, SKIP_K>(op, grid, stream);
-  return launch_tile128_as<false, false, SKIP_K>(op, grid, stream);
+  if (a_cp && b_cp) return launch_tile128_as<true, true, SKIP_K, CLIENTS>(op, co, grid, stream);
+  if (a_cp) return launch_tile128_as<true, false, SKIP_K, CLIENTS>(op, co, grid, stream);
+  if (b_cp) return launch_tile128_as<false, true, SKIP_K, CLIENTS>(op, co, grid, stream);
+  return launch_tile128_as<false, false, SKIP_K, CLIENTS>(op, co, grid, stream);
 }
 
-template <typename T, bool SKIP_K>
-cudaError_t launch_tiles(const Operands& op, dim3 grid, cudaStream_t stream) {
-  masked_mm_kernel<T, SKIP_K><<<grid, GTHREADS, 0, stream>>>(op);
+template <typename T, bool SKIP_K, bool CLIENTS>
+cudaError_t launch_tiles(const Operands& op, const Cohort& co, dim3 grid,
+                         cudaStream_t stream) {
+  masked_mm_kernel<T, SKIP_K, CLIENTS><<<grid, GTHREADS, 0, stream>>>(op, co);
   cudaError_t rc = cudaGetLastError();
   if (rc != cudaSuccess || op.ws == nullptr) return rc;
-  const long long blocks = (op.m * op.n + THREADS - 1) / THREADS;
+  const long long blocks = (co.clients * op.m * op.n + THREADS - 1) / THREADS;
   if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
-  splitk_reduce<T, SKIP_K><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(op);
+  splitk_reduce<T, SKIP_K, CLIENTS>
+      <<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(op, co);
   return cudaGetLastError();
 }
 
-// The grid is (tiles_m, tiles_n, splits), as the wrapper's plan() made it.
-template <bool SKIP_K>
-int launch(int dtype, int config, const Operands& op, int tiles_m, int tiles_n,
-           cudaStream_t stream) {
+// The grid is (clients · tiles_m, tiles_n, splits), as the wrapper's plan()
+// made it.
+template <bool SKIP_K, bool CLIENTS>
+int launch(int dtype, int config, const Operands& op, const Cohort& co, int tiles_m,
+           int tiles_n, cudaStream_t stream) {
   if (tiles_m <= 0 || tiles_n <= 0 || tiles_n > 65535 || op.splits <= 0 ||
-      op.splits > 65535 || op.k_split <= 0) {
+      op.splits > 65535 || op.k_split <= 0 || co.clients <= 0 ||
+      (!CLIENTS && co.clients != 1) ||
+      static_cast<long long>(tiles_m) * co.clients > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidConfiguration);
   }
+  if (CLIENTS && co.counts == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const bool split = op.splits > 1;
   if (split != (op.ws != nullptr) || (split && config != SPLITK) ||
       (config == TILE128 && dtype != 0) || dtype < 0 || dtype > 1 || config < GENERAL ||
       config > SPLITK) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(static_cast<unsigned>(tiles_m), static_cast<unsigned>(tiles_n),
+  const dim3 grid(static_cast<unsigned>(tiles_m * co.clients), static_cast<unsigned>(tiles_n),
                   static_cast<unsigned>(op.splits));
-  if (config == TILE128) return static_cast<int>(launch_tile128<SKIP_K>(op, grid, stream));
-  return static_cast<int>(dtype == 0 ? launch_tiles<float, SKIP_K>(op, grid, stream)
-                                     : launch_tiles<__nv_bfloat16, SKIP_K>(op, grid, stream));
+  if (config == TILE128) {
+    return static_cast<int>(launch_tile128<SKIP_K, CLIENTS>(op, co, grid, stream));
+  }
+  return static_cast<int>(
+      dtype == 0 ? launch_tiles<float, SKIP_K, CLIENTS>(op, co, grid, stream)
+                 : launch_tiles<__nv_bfloat16, SKIP_K, CLIENTS>(op, co, grid, stream));
 }
 
 Operands pack(const void* x, const void* w, void* y, void* ws, const int* live, int n_live,
@@ -615,6 +681,16 @@ Operands pack(const void* x, const void* w, void* y, void* ws, const int* live, 
   return op;
 }
 
+// The single-client entry points' cohort: one client, never read.
+constexpr Cohort kOneClient = {nullptr, 0, 0, 0, 0, 1, 0};
+
+// The client axis: `counts` holds the (clients,) live counts of the (clients,
+// nb) table of live indices, with strides scn and sl.
+Cohort cohort(const int* counts, int clients, long long scx, long long scw, long long sl,
+              long long scn, int tiles_m) {
+  return Cohort{counts, scx, scw, sl, scn, clients, tiles_m};
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  config: GENERAL / TILE128 / SPLITK.
@@ -626,10 +702,10 @@ extern "C" int helios_masked_matmul(int dtype, int config, const void* x, const 
                                     long long sxm, long long sxk, long long swk,
                                     long long swn, int tiles_m, int tiles_n, int splits,
                                     long long k_split, void* stream) {
-  return launch<false>(dtype, config,
-                       pack(x, w, y, ws, live, n_live, block_n, m, n, k, sxm, sxk, swk, swn,
-                            splits, k_split),
-                       tiles_m, tiles_n, static_cast<cudaStream_t>(stream));
+  return launch<false, false>(dtype, config,
+                              pack(x, w, y, ws, live, n_live, block_n, m, n, k, sxm, sxk, swk,
+                                   swn, splits, k_split),
+                              kOneClient, tiles_m, tiles_n, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int helios_masked_matmul_dk(int dtype, int config, const void* x, const void* w,
@@ -638,8 +714,47 @@ extern "C" int helios_masked_matmul_dk(int dtype, int config, const void* x, con
                                        long long sxm, long long sxk, long long swk,
                                        long long swn, int tiles_m, int tiles_n, int splits,
                                        long long k_split, void* stream) {
-  return launch<true>(dtype, config,
-                      pack(x, w, y, ws, live, n_live, block_k, m, n, k, sxm, sxk, swk, swn,
-                           splits, k_split),
-                      tiles_m, tiles_n, static_cast<cudaStream_t>(stream));
+  return launch<true, false>(dtype, config,
+                             pack(x, w, y, ws, live, n_live, block_k, m, n, k, sxm, sxk, swk,
+                                  swn, splits, k_split),
+                             kOneClient, tiles_m, tiles_n, static_cast<cudaStream_t>(stream));
+}
+
+// The client axis: y[c] = x[c] @ w[c] for c < clients, x + c·scx (m, k) and
+// w + c·scw (k, n) with the element strides above, y (clients, m, n)
+// row-major, live a (clients, nb) int32 table of each client's live block
+// indices (ascending, counts[c·scn] of them, row stride sl); ws the
+// (splits, clients, m, n) f32 workspace when splits > 1, else null.
+// tiles_m is a client's row tiles (the grid's x is clients · tiles_m);
+// tiles_n covers nb blocks.
+extern "C" int helios_masked_matmul_clients(int dtype, int config, const void* x,
+                                            const void* w, void* y, void* ws,
+                                            const int* live, const int* counts, int nb,
+                                            int block_n, int clients, long long m, long long n,
+                                            long long k, long long scx, long long sxm,
+                                            long long sxk, long long scw, long long swk,
+                                            long long swn, long long sl, long long scn,
+                                            int tiles_m, int tiles_n, int splits,
+                                            long long k_split, void* stream) {
+  return launch<false, true>(dtype, config,
+                             pack(x, w, y, ws, live, nb, block_n, m, n, k, sxm, sxk, swk, swn,
+                                  splits, k_split),
+                             cohort(counts, clients, scx, scw, sl, scn, tiles_m), tiles_m,
+                             tiles_n, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int helios_masked_matmul_dk_clients(int dtype, int config, const void* x,
+                                               const void* w, void* y, void* ws,
+                                               const int* live, const int* counts, int nb,
+                                               int block_k, int clients, long long m,
+                                               long long n, long long k, long long scx,
+                                               long long sxm, long long sxk, long long scw,
+                                               long long swk, long long swn, long long sl,
+                                               long long scn, int tiles_m, int tiles_n,
+                                               int splits, long long k_split, void* stream) {
+  return launch<true, true>(dtype, config,
+                            pack(x, w, y, ws, live, nb, block_k, m, n, k, sxm, sxk, swk, swn,
+                                 splits, k_split),
+                            cohort(counts, clients, scx, scw, sl, scn, tiles_m), tiles_m,
+                            tiles_n, static_cast<cudaStream_t>(stream));
 }

@@ -20,12 +20,21 @@ reference does, differentiates by recomputing the plain attention under
 autograd in its backward (no backward kernel).  :func:`ssd_diag` does the
 same for the Mamba2 intra-chunk term (the reference has no VJP for it).
 
+The masked Functions run under ``torch.func.vmap`` too (the batched round
+engine vmaps a local step over a cohort): each has a ``vmap`` rule that
+moves the client axis to the front and calls the client-axis kernels, one
+launch for the cohort, and their backward calls the raw products through
+small Functions that carry vmap rules of their own.  An operand that is
+the same for every client (``in_dims=None``) reaches the kernels with a
+client stride of 0.
+
 On a CPU tensor the kernel wrappers compute their plain versions, so the
 same autograd structure runs in the CPU tests.  The kernels mask ragged
 edges themselves: no operand is padded here.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import Tuple
 
 import torch
@@ -93,6 +102,41 @@ def _live(unit_mask: torch.Tensor, block: int) -> torch.Tensor:
     return live
 
 
+#: (C, N) cohort masks -> their live tables.  Under vmap a mask reaches the
+#: rules as a fresh view on every call, so entries are keyed by what the
+#: view reads (address, shape, strides, version, block) and hold the view,
+#: which keeps that memory from being reused while the entry lives.  A
+#: cohort's masks live for a round: each table is built once a round.
+_CLIENT_LIVE: "OrderedDict[tuple, tuple]" = OrderedDict()
+_CLIENT_LIVE_SIZE = 64
+
+
+def _client_live(masks: torch.Tensor,
+                 block: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(C, N) unit masks -> the client-axis kernels' (C, nb) live table and
+    (C,) counts, built on the device without a host wait."""
+    key = (masks.data_ptr(), masks.device, masks.dtype, tuple(masks.shape),
+           masks.stride(), masks._version, block)
+    hit = _CLIENT_LIVE.get(key)
+    if hit is not None:
+        _CLIENT_LIVE.move_to_end(key)
+        return hit[1], hit[2]
+    flags = _pad_last(masks, block).reshape(masks.shape[0], -1, block)
+    table, counts = K.live_table(flags.amax(dim=-1))
+    _CLIENT_LIVE[key] = (masks, table, counts)
+    if len(_CLIENT_LIVE) > _CLIENT_LIVE_SIZE:
+        _CLIENT_LIVE.popitem(last=False)
+    return table, counts
+
+
+def _clients_first(info, t: torch.Tensor, dim) -> torch.Tensor:
+    """A vmap rule's operand with the client axis in front; one that every
+    client shares (``dim`` None) as a stride-0 expansion."""
+    if dim is None:
+        return t.expand(info.batch_size, *t.shape)
+    return t.movedim(dim, 0)
+
+
 # ---------------------------------------------------------------------------
 # masked dense layer (column-block skip) and masked contraction
 # ---------------------------------------------------------------------------
@@ -106,6 +150,50 @@ def _mm(x, w, unit_mask, live, block_n):
     return y * unit_mask.to(y.dtype)[None, :]
 
 
+def _mm_clients(x, w, masks, block_n):
+    """:func:`_mm` over the client axis: x (C, M, K), w (C, K, N), masks
+    (C, N), one launch."""
+    live, counts = _client_live(masks, block_n)
+    y = K.masked_matmul_clients(x, w, live, counts, block_n)
+    return y * masks.to(y.dtype)[:, None, :]
+
+
+def _dk_clients(x, w, masks, block_k):
+    live, counts = _client_live(masks, block_k)
+    return K.masked_matmul_dk_clients(x, w, live, counts, block_k)
+
+
+class _Product(torch.autograd.Function):
+    """A raw kernel product inside a masked Function's backward, vmappable:
+    the column-skipping ``x @ (w·mask)`` or, with ``skip_k``, the
+    contraction-skipping ``x @ w`` over the mask's live rows.  Never
+    differentiated itself."""
+
+    generate_vmap_rule = False
+
+    @staticmethod
+    def forward(x, w, unit_mask, block, skip_k):
+        live = _live(unit_mask, block)
+        if skip_k:
+            return K.masked_matmul_dk(x, w, live, block)
+        return _mm(x, w, unit_mask, live, block)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, dy):
+        raise RuntimeError("a masked kernel product is not differentiated "
+                           "twice")
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, unit_mask, block, skip_k):
+        x, w, m = (_clients_first(info, t, d)
+                   for t, d in zip((x, w, unit_mask), in_dims))
+        return (_dk_clients if skip_k else _mm_clients)(x, w, m, block), 0
+
+
 class _MaskedDense(torch.autograd.Function):
     """``y = x @ (w · mask)`` at one mask-block granularity.
 
@@ -114,21 +202,32 @@ class _MaskedDense(torch.autograd.Function):
     masked columns exactly zero; no gradient for the mask.
     """
 
+    generate_vmap_rule = False
+
     @staticmethod
-    def forward(ctx, x, w, unit_mask, block_n):
-        live = _live(unit_mask, block_n)
+    def forward(x, w, unit_mask, block_n):
+        return _mm(x, w, unit_mask, _live(unit_mask, block_n), block_n)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, w, unit_mask, block_n = inputs
         ctx.save_for_backward(x, w, unit_mask)
-        ctx.live, ctx.block_n = live, block_n
-        return _mm(x, w, unit_mask, live, block_n)
+        ctx.block_n = block_n
 
     @staticmethod
     def backward(ctx, dy):
         x, w, unit_mask = ctx.saved_tensors
-        live, bn = ctx.live, ctx.block_n
+        bn = ctx.block_n
         dym = dy * unit_mask.to(dy.dtype)[None, :]
-        dx = K.masked_matmul_dk(dym, w.t(), live, bn)
-        dw = _mm(x.t(), dym, unit_mask, live, bn)
+        dx = _Product.apply(dym, w.t(), unit_mask, bn, True)
+        dw = _Product.apply(x.t(), dym, unit_mask, bn, False)
         return dx, dw, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, w, unit_mask, block_n):
+        x, w, m = (_clients_first(info, t, d)
+                   for t, d in zip((x, w, unit_mask), in_dims))
+        return _mm_clients(x, w, m, block_n), 0
 
 
 class _MaskedContract(torch.autograd.Function):
@@ -140,22 +239,33 @@ class _MaskedContract(torch.autograd.Function):
     by the column-skipping kernel).
     """
 
+    generate_vmap_rule = False
+
     @staticmethod
-    def forward(ctx, h, w, unit_mask, block_n):
-        live = _live(unit_mask, block_n)
+    def forward(h, w, unit_mask, block_n):
+        return K.masked_matmul_dk(h * unit_mask.to(h.dtype)[None, :], w,
+                                  _live(unit_mask, block_n), block_n)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        h, w, unit_mask, block_n = inputs
         ctx.save_for_backward(h, w, unit_mask)
-        ctx.live, ctx.block_n = live, block_n
-        return K.masked_matmul_dk(h * unit_mask.to(h.dtype)[None, :], w, live,
-                                  block_n)
+        ctx.block_n = block_n
 
     @staticmethod
     def backward(ctx, dy):
         h, w, unit_mask = ctx.saved_tensors
-        live, bn = ctx.live, ctx.block_n
+        bn = ctx.block_n
         dy = dy.contiguous()          # a broadcast cotangent has zero strides
-        dh = _mm(dy, w.t(), unit_mask, live, bn)
-        dw = _mm(dy.t(), h, unit_mask, live, bn).t()
+        dh = _Product.apply(dy, w.t(), unit_mask, bn, False)
+        dw = _Product.apply(dy.t(), h, unit_mask, bn, False).t()
         return dh, dw, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, h, w, unit_mask, block_n):
+        h, w, m = (_clients_first(info, t, d)
+                   for t, d in zip((h, w, unit_mask), in_dims))
+        return _dk_clients(h * m.to(h.dtype)[:, None, :], w, m, block_n), 0
 
 
 def _collapse(x: torch.Tensor) -> Tuple[torch.Tensor, tuple]:

@@ -33,6 +33,25 @@ def masked_matmul_dk_ref(x: torch.Tensor, w: torch.Tensor, live: torch.Tensor,
     return x @ (w * mask[:, None])
 
 
+def masked_matmul_clients_ref(x: torch.Tensor, w: torch.Tensor,
+                              live: torch.Tensor, counts: torch.Tensor,
+                              block_n: int) -> torch.Tensor:
+    """:func:`masked_matmul_ref` client by client: x (C, M, K), w (C, K, N),
+    client c's live N-blocks ``live[c, :counts[c]]``."""
+    return torch.stack([masked_matmul_ref(x[c], w[c], live[c, :int(counts[c])],
+                                          block_n)
+                        for c in range(x.shape[0])])
+
+
+def masked_matmul_dk_clients_ref(x: torch.Tensor, w: torch.Tensor,
+                                 live: torch.Tensor, counts: torch.Tensor,
+                                 block_k: int) -> torch.Tensor:
+    """:func:`masked_matmul_dk_ref` client by client."""
+    return torch.stack([masked_matmul_dk_ref(x[c], w[c],
+                                             live[c, :int(counts[c])], block_k)
+                        for c in range(x.shape[0])])
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
     """Dense softmax attention.  q, k, v: (B, H, S, hd); f32 arithmetic,

@@ -1,6 +1,7 @@
-"""The port stands alone: nothing under ``src/repro_torch/`` and nothing in
-``chip_smoke.py`` imports JAX or the JAX package, and the package with its
-entry points imports in a process where ``jax`` cannot be imported."""
+"""The port stands alone: nothing under ``src/repro_torch/``, in
+``chip_smoke.py`` or in the port's ``scripts/`` imports JAX or the JAX
+package, and the package with its entry points imports in a process where
+``jax`` cannot be imported."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+    + sorted((ROOT / "scripts").glob("*.py"))
 
 
 def _imported_modules(path: Path):

@@ -9,10 +9,17 @@ schedule walks each live contraction row once, (b) that a torch emulation
 of the schedule (the same tiles, stages, splits and reduce order as the
 CUDA kernels walk) gives the plain version within 1e-5 (f32, O(1) values),
 and (c) that the ``extern "C"`` signatures in ``csrc/masked_matmul.cu``
-match the wrapper's ctypes ``_ARGTYPES``.  The kernels themselves are held
-against the plain versions on the card by ``chip_smoke.py``.
+match the wrapper's ctypes ``_ARGTYPES``.  The client-axis entry points
+(one launch for a cohort, ``plan(..., clients=C)``) get the same three
+checks: the grid (C · row tiles, every block a client could have, splits),
+the (S, C, M, N) workspace and the split-K schedule that only the cohorts
+that leave the SMs idle take, and an emulation per client against the
+plain versions, with a client that has no live block and a weight shared
+by the cohort.  The kernels themselves are held against the plain
+versions on the card by ``chip_smoke.py``.
 """
 import ctypes
+import dataclasses
 import re
 
 import numpy as np
@@ -282,10 +289,97 @@ def _c_kind(param: str):
 
 
 @pytest.mark.parametrize("name", ["helios_masked_matmul",
-                                  "helios_masked_matmul_dk"])
+                                  "helios_masked_matmul_dk",
+                                  "helios_masked_matmul_clients",
+                                  "helios_masked_matmul_dk_clients"])
 def test_c_signature_matches_argtypes(name):
     src = (build.CSRC / f"{K.SOURCE}.cu").read_text()
     sig = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
     assert sig, f"{name} not found in {K.SOURCE}.cu"
     kinds = [_c_kind(p) for p in sig.group(1).split(",")]
-    assert kinds == K._ARGTYPES
+    assert kinds == (K._CLIENT_ARGTYPES if name.endswith("_clients")
+                     else K._ARGTYPES)
+
+
+# ---------------------------------------------------------------------------
+# the client axis
+# ---------------------------------------------------------------------------
+
+
+def _client_view(c, rows, cols, layout, shared=False):
+    """A (C, rows, cols) meta view whose clients are row- or column-major,
+    or one (rows, cols) view shared by the cohort (client stride 0)."""
+    t = _view(rows, cols, layout)
+    return t.expand(c, rows, cols) if shared else \
+        torch.stack([t] * c) if layout == "row" else \
+        torch.empty((c, cols, rows), device="meta").transpose(1, 2)
+
+
+@pytest.mark.parametrize("c, m, splits", [(2, 32, 4), (32, 16, 1),
+                                          (64, 16, 1)])
+@pytest.mark.parametrize("kind", ["fwd", "dx"])
+def test_client_plan_splits_only_an_idle_grid(kind, c, m, splits):
+    """fc0 of full-width AlexNet: the 2 + 2 fleet's cohorts of 2 at batch 32
+    take split-K; a cohort of 32 or 64 at batch 16 fills the SMs without
+    it.  The grid's x is C · row tiles, its y every block a client could
+    have, and the workspace (S, C, M, N)."""
+    kernel, m, k, n, xl, wl = _layer_call(kind, m, 4096, 1024)
+    nb = -(-(k if kernel == DK else n) // 128)
+    p = K.plan(kernel, m, n, k, nb, 128, _client_view(c, m, k, xl),
+               _client_view(c, k, n, wl, shared=True), clients=c)
+    assert p.config == "splitk" and p.tiles_m == 1
+    assert p.grid == (c, -(-n // 64) if kernel == DK else nb * 2, p.splits)
+    assert (p.splits > 1) == (splits > 1)
+    assert p.workspace == ((p.splits, c, m, n) if p.splits > 1 else None)
+    assert np.prod(p.grid) <= 2 * K.SMS or p.splits == 1
+
+
+def test_client_dw_takes_tile128_and_the_grid_limit_raises():
+    x = _client_view(4, 4096, 32, "col")
+    w = _client_view(4, 32, 1024, "row")
+    p = K.plan(COL, 4096, 1024, 32, 8, 128, x, w, clients=4)
+    assert p.config == "tile128" and p.grid == (4 * 32, 8, 1)
+    assert p.tiles_m == 32 and p.workspace is None
+    x = torch.empty((2 ** 31 // 32, 4096, 8), device="meta")
+    w = torch.empty((8, 128), device="meta").expand(2 ** 31 // 32, 8, 128)
+    with pytest.raises(ValueError, match="2\\^31"):
+        K.plan(COL, 4096, 128, 8, 1, 128, x, w, clients=2 ** 31 // 32)
+
+
+@pytest.mark.parametrize("m", [32, 160])
+@pytest.mark.parametrize("kernel", [COL, DK])
+def test_client_schedule_emulation_matches_plain(kernel, m):
+    """Each client walks the grid the client-axis kernels launch: its own
+    live list (tiles past its count exit), the splits of the cohort's plan
+    (a split past a client's live blocks writes zeros), the workspace rows
+    of its own.  Client 0 has no live block; w is shared (stride 0)."""
+    rng = np.random.default_rng(11)
+    c, k, n, block = 3, 520, 648, 16
+    length = k if kernel == DK else n
+    nb = -(-length // block)
+    flags = np.zeros((c, nb), np.float32)
+    flags[1, rng.permutation(nb)[:nb // 3]] = 1
+    flags[2] = 1
+    table, counts = K.live_table(torch.as_tensor(flags))
+    xd = rng.normal(size=(c, m, k)).astype(np.float32)
+    if kernel == DK:                        # dead contraction entries are 0
+        xd = xd * np.repeat(flags, block, axis=1)[:, None, :k]
+    wd = (rng.normal(size=(k, n)) / np.sqrt(k)).astype(np.float32)
+    x = torch.as_tensor(xd)
+    w = torch.as_tensor(wd).expand(c, k, n) if kernel == COL else \
+        torch.as_tensor(np.ascontiguousarray(wd.T)).t().expand(c, k, n)
+    p = K.plan(kernel, m, n, k, nb, block, x, w, clients=c)
+    per = -(-block // p.tile[1])
+    want = (K.ref.masked_matmul_dk_clients_ref if kernel == DK else
+            K.ref.masked_matmul_clients_ref)(x, w, table, counts, block)
+    for i in range(c):
+        live = table[i, :int(counts[i])].numpy()
+        # the client's share of the grid: its row tiles, the column tiles
+        # that do not exit, the cohort's splits
+        tiles_n = p.grid[1] if kernel == DK else len(live) * per
+        mine = dataclasses.replace(
+            p, grid=(p.tiles_m, tiles_n, p.splits),
+            workspace=None if p.splits == 1 else (p.splits, m, n))
+        got = _emulate(kernel, x[i], w[i], live, block, mine)
+        assert float((got - want[i]).abs().max()) <= 1e-5, i
+    assert float(want[0].abs().max()) == 0.0
