@@ -109,6 +109,8 @@ line before it is the card's name and power limit, and before that the
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -716,12 +718,15 @@ def time_rounds(st) -> None:
     profile_round(run, "helios round")
 
 
-def profile_round(run, label: str, drive=None, host_top: int = 0) -> dict:
+def profile_round(run, label: str, drive=None, host_top: int = 0,
+                  groups: tuple = ()) -> dict:
     """One round (no evaluation), or what ``drive`` runs (it returns its
     wall in seconds), under the profiler: wall, device busy time, idle
     share and the device time of the heaviest ops (and the ``host_top``
-    heaviest by host self time).  Returns the wall, the busy time and the
-    masked kernels' device time in ms."""
+    heaviest by host self time); ``groups`` adds (label, name parts)
+    groups of device ops to the kernels' own.  Returns the wall, the busy
+    time and the masked kernels' device time in ms, and each group's
+    device time under its label."""
     from torch.profiler import ProfilerActivity, profile
     drive = drive or (lambda: timed_run(run, 1, eval_every=0)[1])
     with profile(activities=[ProfilerActivity.CPU,
@@ -738,13 +743,14 @@ def profile_round(run, label: str, drive=None, host_top: int = 0) -> dict:
     for what, names in (("masked kernels", ("masked_mm", "splitk_reduce")),
                         ("flash_attention kernel", ("flash_fwd_kernel",)),
                         ("ssd_diag kernels", ("ssd_cb_kernel",
-                                              "ssd_diag_kernel"))):
+                                              "ssd_diag_kernel"))) + groups:
         mine = [e for e in rows if any(n in e.key for n in names)]
         if mine:
             ms = sum(map(_device_us, mine)) / 1e3
             if what == "masked kernels":
                 out["masked_ms"] = ms
-            log(f"  {what}: device {ms:.3f} ms "
+            out[what] = ms
+            log(f"  {what}: device {ms:.3f} ms ({ms / busy_ms:.4f} of busy) "
                 f"over {sum(e.count for e in mine)} kernel calls")
     for e in sorted(rows, key=_device_us, reverse=True)[:12]:
         log(f"  device {_device_us(e) / 1e3:9.3f} ms  calls {e.count:5d}  "
@@ -1427,45 +1433,40 @@ def _qkv(b: int, h: int, s: int, hd: int, dtype, g, pad: int = 0):
             .to(dtype)[..., :hd].transpose(1, 2) for _ in range(3)]
 
 
-def check_flash() -> float:
-    """The flash kernel and the autograd op against their plain versions;
-    returns the worst f32 error at the slice shape."""
+def _check_flash_case(b: int, h: int, s: int, hd: int, causal: bool, dt,
+                      gen, pad: int = 0) -> float:
+    """One flash call, twice, against its plain version: within tolerance,
+    bit-identical on repeat, on the copy variant ``pad`` selects; returns
+    the max abs error."""
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels import ops, ref
-    g = torch.Generator(device="cuda").manual_seed(2)
-    worst = 0.0
-    # every case on 16-byte copies, then the second case off the 16-byte
-    # grid (element copies), drawn from a generator of its own
-    cases = [(c, 0, g) for c in FLASH_CASES] + [
-        (FLASH_CASES[1], 1, torch.Generator(device="cuda").manual_seed(12))]
-    for i, ((b, h, s, hd, causal), pad, gen) in enumerate(cases):
-        for dt in (torch.float32, torch.bfloat16):
-            q, k, v = _qkv(b, h, s, hd, dt, gen, pad)
-            before = dict(FA.CONFIG_LAUNCHES)
-            y = FA.flash_attention(q, k, v, causal)
-            again = FA.flash_attention(q, k, v, causal)
-            want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
-                                           causal)
-            torch.cuda.synchronize()
-            err = float((y.float() - want).abs().max())
-            tol = (F32_TOL if dt == torch.float32 else BF16_TOL) * \
-                float(want.abs().max())
-            variant = "unaligned" if pad else "aligned"
-            took = FA.CONFIG_LAUNCHES[variant] - before[variant]
-            same = torch.equal(y, again)
-            log(f"check flash_attention B={b} H={h} S={s} hd={hd} "
-                f"causal={causal} {str(dt)[6:]:8s} [{variant}] "
-                f"max|err|={err:.3e} tol={tol:.3e} repeat-identical={same}")
-            if not (err <= tol and math.isfinite(err) and same and took == 2):
-                raise AssertionError(f"flash_attention disagrees with its "
-                                     f"plain version: {err} > {tol}, a "
-                                     f"repeat differs ({same}) or the calls "
-                                     f"did not take {variant} ({took} of 2)")
-            if i == 0 and dt == torch.float32:
-                worst = err
-    # the autograd op at the slice shape: kernel forward + recompute
-    # backward against plain autograd through the dense attention
-    b, h, s, hd, causal = FLASH_CASES[0]
+    from repro_torch.kernels import ref
+    q, k, v = _qkv(b, h, s, hd, dt, gen, pad)
+    before = dict(FA.CONFIG_LAUNCHES)
+    y = FA.flash_attention(q, k, v, causal)
+    again = FA.flash_attention(q, k, v, causal)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal)
+    torch.cuda.synchronize()
+    err = float((y.float() - want).abs().max())
+    tol = (F32_TOL if dt == torch.float32 else BF16_TOL) * \
+        float(want.abs().max())
+    variant = "unaligned" if pad else "aligned"
+    took = FA.CONFIG_LAUNCHES[variant] - before[variant]
+    same = torch.equal(y, again)
+    log(f"check flash_attention B={b} H={h} S={s} hd={hd} "
+        f"causal={causal} {str(dt)[6:]:8s} [{variant}] "
+        f"max|err|={err:.3e} tol={tol:.3e} repeat-identical={same}")
+    if not (err <= tol and math.isfinite(err) and same and took == 2):
+        raise AssertionError(f"flash_attention disagrees with its "
+                             f"plain version: {err} > {tol}, a "
+                             f"repeat differs ({same}) or the calls "
+                             f"did not take {variant} ({took} of 2)")
+    return err
+
+
+def _check_flash_op(b: int, h: int, s: int, hd: int, g) -> None:
+    """The causal autograd op (kernel forward + recompute backward) against
+    plain autograd through the dense attention."""
+    from repro_torch.kernels import ops
     q, k, v = _qkv(b, h, s, hd, torch.float32, g)
     gy = torch.randn(b, h, s, hd, device="cuda", generator=g)
     outs = {}
@@ -1477,10 +1478,29 @@ def check_flash() -> float:
                           ("y", "dq", "dk", "dv")):
         err = float((a.detach() - w.detach()).abs().max())
         tol = F32_TOL * float(w.detach().abs().max())
-        log(f"check flash op {what:2s} slice shape max|err|={err:.3e} "
-            f"tol={tol:.3e}")
+        log(f"check flash op {what:2s} ({b}, {h}, {s}, {hd}) max|err|="
+            f"{err:.3e} tol={tol:.3e}")
         if not err <= tol:
             raise AssertionError(f"flash op {what} disagrees: {err}")
+
+
+def check_flash() -> float:
+    """The flash kernel and the autograd op against their plain versions;
+    returns the worst f32 error at the slice shape."""
+    from repro_torch.kernels import flash_attention as FA
+    g = torch.Generator(device="cuda").manual_seed(2)
+    worst = 0.0
+    # every case on 16-byte copies, then the second case off the 16-byte
+    # grid (element copies), drawn from a generator of its own
+    cases = [(c, 0, g) for c in FLASH_CASES] + [
+        (FLASH_CASES[1], 1, torch.Generator(device="cuda").manual_seed(12))]
+    for i, (case, pad, gen) in enumerate(cases):
+        for dt in (torch.float32, torch.bfloat16):
+            err = _check_flash_case(*case, dt, gen, pad)
+            if i == 0 and dt == torch.float32:
+                worst = err
+    # the autograd op at the slice shape
+    _check_flash_op(*FLASH_CASES[0][:4], g)
     FA.reset_launches()
     return worst
 
@@ -1685,16 +1705,16 @@ def _bwd_ms(op, sets, n_out_args: int) -> float:
     return both - fwd
 
 
-def time_flash(worst: float, launches: int, per_round: int) -> dict:
+def _flash_times(b: int, h: int, s: int, hd: int, causal: bool,
+                 seed: int) -> tuple:
     """The flash kernel, its plain version and PyTorch's SDPA (a yardstick
-    the port never calls) at the slice shape, f32: device time (calls
-    enqueued while the card sleeps) and event time as issued; and the
-    recompute backward of the autograd op, a call and a round."""
+    the port never calls) at one shape, f32: device time (calls enqueued
+    while the card sleeps), event time as issued, the recompute backward's
+    event time, and the bounds.  Returns (times, bounds, FLOP)."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ops, ref
     import torch.nn.functional as F
-    b, h, s, hd, causal = FLASH_CASES[0]
-    g = torch.Generator(device="cuda").manual_seed(3)
+    g = torch.Generator(device="cuda").manual_seed(seed)
     sets = [tuple(_qkv(b, h, s, hd, torch.float32, g)) for _ in range(3)]
     kern = lambda q, k, v: FA.flash_attention(q, k, v, causal)
     sdpa = lambda q, k, v: F.scaled_dot_product_attention(q, k, v,
@@ -1704,20 +1724,18 @@ def time_flash(worst: float, launches: int, per_round: int) -> dict:
          "library_wall_ms": _time_ms(sdpa, sets),
          "plain_ms": _time_ms(lambda q, k, v: ref.flash_attention_ref(
              q, k, v, causal), sets)}
-    bwd = _bwd_ms(lambda q, k, v: ops.flash_attention(q, k, v,
-                                                      causal=causal),
-                  sets, 3)
+    t["recompute_bwd_ms"] = _bwd_ms(
+        lambda q, k, v: ops.flash_attention(q, k, v, causal=causal), sets, 3)
     pairs = s * (s + 1) // 2 if causal else s * s   # (query, key) pairs
     flops = 4 * hd * pairs * b * h                  # q·kᵀ and p·v
     bd = _bounds(flops, 4 * 4 * b * h * s * hd)     # q, k, v read; o written
-    row = {"name": "flash_attention", "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-           "replaces": "src/repro/kernels/flash_attention.py:70",
-           "launches": launches, "max_abs_err": worst, **t,
-           "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
-           "bound_f32_ms": bd["bound_f32_ms"],
-           "recompute_bwd_ms": bwd, "recompute_bwd_ms_per_round":
-               bwd * per_round}
+    return t, bd, flops
+
+
+def _flash_line(shape: tuple, t: dict, bd: dict, flops: float,
+                per_round: int) -> None:
+    b, h, s, hd, _ = shape
+    bwd = t["recompute_bwd_ms"]
     log(f"time flash_attention B={b} H={h} S={s} hd={hd} causal f32: "
         f"device {t['ms']:.4f} ms (sdpa {t['library_ms']:.4f}); as issued "
         f"{t['wall_ms']:.4f} (sdpa {t['library_wall_ms']:.4f}, plain "
@@ -1728,7 +1746,20 @@ def time_flash(worst: float, launches: int, per_round: int) -> dict:
         f"{'yes' if t['ms'] < t['library_ms'] else 'no'}; recompute "
         f"backward {bwd:.4f} ms a call, {bwd * per_round:.3f} ms a round "
         f"({per_round} calls)")
-    return row
+
+
+def time_flash(worst: float, launches: int, per_round: int) -> dict:
+    """The flash kernel against its plain version and SDPA at the LM
+    slice's shape, and the recompute backward, a call and a round."""
+    t, bd, flops = _flash_times(*FLASH_CASES[0], seed=3)
+    _flash_line(FLASH_CASES[0], t, bd, flops, per_round)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:70",
+            "launches": launches, "max_abs_err": worst, **t,
+            "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"],
+            "bound_f32_ms": bd["bound_f32_ms"],
+            "recompute_bwd_ms_per_round": t["recompute_bwd_ms"] * per_round}
 
 
 def time_lm_mlp() -> dict:
@@ -2072,6 +2103,438 @@ def time_hybrid_round(st) -> None:
         + json.dumps(walls))
 
 
+# ---------------------------------------------------------------------------
+# phases 3e, 4h and 5d: the MoE path (Granite-3.0-1B-A400M)
+# ---------------------------------------------------------------------------
+
+#: the MoE slice's flash calls, (B, H, S, hd, causal): Granite's 8 KV heads
+#: are repeated onto its 16 query heads before the kernel
+GR_FLASH = (LM_BATCH, 16, LM_SEQ, 64, True)
+#: device memory the MoE path may hold before its depth must be cut
+GR_PEAK_GIB = 76.0
+#: the largest k-th / (k+1)-th router probability gap at which the kernel
+#: path and the plain path may choose different experts for a token
+FLIP_GAP = 1e-5
+#: device ops of the router's top-k and the grouped dispatch (the
+#: embedding's gather and backward and the loss's gather match too)
+DISPATCH_OPS = (("routing + dispatch (sort / index / scatter / gather)",
+                 ("sort", "Sort", "index", "Index", "scatter", "gather")),)
+
+
+def check_granite_flash() -> float:
+    """The flash kernel at the MoE path's shape, f32 and bf16, against its
+    plain version, and the autograd op; returns the f32 error."""
+    from repro_torch.kernels import flash_attention as FA
+    g = torch.Generator(device="cuda").manual_seed(21)
+    worst = _check_flash_case(*GR_FLASH, torch.float32, g)
+    _check_flash_case(*GR_FLASH, torch.bfloat16, g)
+    _check_flash_op(*GR_FLASH[:4], g)
+    FA.reset_launches()
+    return worst
+
+
+def granite_setting():
+    """Granite-3.0-1B-A400M at full width and depth, on the LM's data."""
+    from repro_torch.configs import GRANITE_MOE_1B_A400M, HeliosConfig
+    from repro_torch.data.federated import partition_by_topic
+    from repro_torch.data.synthetic import markov_topic_tokens
+    from repro_torch.models import init_params
+    from repro_torch.models.module import tree_leaves
+    cfg = GRANITE_MOE_1B_A400M
+    tokens, topics = markov_topic_tokens(256, LM_SEQ, LM_VOCAB, n_topics=8)
+    test_tokens, _ = markov_topic_tokens(16, LM_SEQ, LM_VOCAB, n_topics=8,
+                                         seed=9)
+    parts = partition_by_topic(topics, 4, topics_per_client=2)
+    log(f"Granite config: {cfg.name} at full width (d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads x {cfg.resolved_head_dim} over "
+        f"{cfg.num_kv_heads} KV heads, {cfg.num_experts} experts of "
+        f"{cfg.moe_d_ff} hidden units, top-{cfg.num_experts_per_tok}, tied "
+        f"embeddings, vocab {cfg.vocab_size} padded to {cfg.padded_vocab}) "
+        f"and full depth, {cfg.num_layers} of {cfg.num_layers} layers, no "
+        f"cut; batch {LM_BATCH} x {LM_SEQ} tokens over a data vocab of "
+        f"{LM_VOCAB}; a 2 + 2 Table-I fleet, 2 local steps, lr 0.05")
+    t0 = time.perf_counter()
+    init = init_params(cfg, 0, "cpu")        # host copy, reused by every run
+    log(f"Granite params {sum(v.numel() for v in tree_leaves(init)) / 1e9:.4f}"
+        f" B, drawn in {time.perf_counter() - t0:.1f} s")
+    return cfg, HeliosConfig(mask_block=BLOCK), {"tokens": tokens}, \
+        {"tokens": test_tokens}, parts, init
+
+
+class RouteTap:
+    """A script-side instrument on the port's top-k routing
+    (``repro_torch.models.moe.top_k``), patched in for one ``use`` block.
+
+    ``record`` queues each call's router probabilities and choices.
+    ``replay`` hands each call the oldest queued choices instead of its
+    own, gathering its own probabilities there; ``compare`` leaves the
+    call's own choices in place.  Both keep, for each call, the tokens
+    whose own top-k set differs from the queued one (routing flips), the
+    queued and the own k-th / (k+1)-th probability gaps, and each token's
+    largest probability change."""
+
+    def __init__(self):
+        self.queue = collections.deque()
+        self.seen = []
+
+    @contextlib.contextmanager
+    def use(self, mode: str):
+        from repro_torch.models import moe
+        orig = moe.top_k
+
+        def gap(p, k):
+            v = torch.sort(p.detach(), dim=-1, descending=True).values
+            return v[:, k - 1] - v[:, k]
+
+        def tap(probs, k):
+            w, idx = orig(probs, k)
+            if mode == "record":
+                self.queue.append((probs.detach(), idx))
+                return w, idx
+            rp, ridx = self.queue.popleft()
+            differs = (torch.sort(idx, dim=-1).values
+                       != torch.sort(ridx, dim=-1).values).any(dim=-1)
+            self.seen.append((differs, gap(rp, k), gap(probs, k),
+                              (probs.detach() - rp).abs().amax(dim=-1)))
+            if mode == "compare":
+                return w, idx
+            return probs.gather(-1, ridx), ridx
+
+        moe.top_k = tap
+        try:
+            yield self
+        finally:
+            moe.top_k = orig
+
+    def report(self, label: str, layers: int, k: int, gate: bool) -> None:
+        """Print the flips; with ``gate``, fail on one at a gap above
+        ``FLIP_GAP``."""
+        if self.queue:
+            raise AssertionError(f"{label}: {len(self.queue)} recorded "
+                                 f"routings were not replayed")
+        decisions = sum(int(f[0].shape[0]) for f in self.seen)
+        found = []
+        for at, (differs, gp, gk, _) in enumerate(self.seen):
+            for t in differs.nonzero().flatten().tolist():
+                found.append((at, t, float(gp[t]), float(gk[t])))
+        # a token's k-th / (k+1)-th gap moves by at most twice its largest
+        # probability change, so only tokens moved by more than half the
+        # gate can flip above it
+        dp, at_dp = max((float(f[3].max()), at)
+                        for at, f in enumerate(self.seen))
+        moved = sum(int((f[3] > FLIP_GAP / 2).sum()) for f in self.seen)
+        log(f"{label}: {decisions} top-{k} routing decisions over "
+            f"{len(self.seen)} router calls; max|router prob diff| "
+            f"{dp:.3e} (router call {at_dp}, layer {at_dp % layers}); "
+            f"tokens moved by more than {FLIP_GAP / 2:g}: {moved}; flips "
+            f"(the top-{k} sets differ): {len(found)}")
+        for at, t, gp, gk in found:
+            log(f"  flip: router call {at} (layer {at % layers}), token {t}: "
+                f"k-th/(k+1)-th probability gap {gp:.3e} on the recorded "
+                f"path, {gk:.3e} on the other")
+        worst = max((gp for _, _, gp, _ in found), default=0.0)
+        if gate and worst > FLIP_GAP:
+            raise AssertionError(f"{label}: a routing flip at a gap of "
+                                 f"{worst} > {FLIP_GAP}")
+
+
+def shadow_plain_routing(run, tap: RouteTap, cross: RouteTap) -> None:
+    """Make each local step of ``run`` (the kernel path) take the plain
+    path's expert choices from the same params and batch: a plain forward
+    without grad records them (``cross`` compares them with another run's
+    recorded choices, in step order), then the kernel forward replays
+    them."""
+    ad = run.adapter
+    plain_rt = {**ad.rt, "kernels": "reference"}
+    kernel_loss = ad.loss_fn
+
+    def loss_fn(params, batch, masks):
+        with torch.no_grad(), tap.use("record"), cross.use("compare"):
+            ad.api.loss_fn(params, batch, ad.cfg, plain_rt, masks)
+        with tap.use("replay"):
+            return kernel_loss(params, batch, masks)
+
+    ad.loss_fn = loss_fn
+
+
+def record_routing(run, tap: RouteTap) -> None:
+    """Record the expert choices of each local step of ``run``."""
+    ad = run.adapter
+    loss = ad.loss_fn
+
+    def loss_fn(params, batch, masks):
+        with tap.use("record"):
+            return loss(params, batch, masks)
+
+    ad.loss_fn = loss_fn
+
+
+def check_granite_step(st, params, strag_masks) -> None:
+    """One full-size Granite training step, kernel path against plain path
+    from the same params and batch, the plain path's expert choices
+    replayed into the kernel path: loss and every gradient within 1e-4
+    relative, with a straggler's Eq. 2 masks and with full masks."""
+    from repro_torch.models import make_full_masks, transformer
+    from repro_torch.models.module import tree_paths
+    cfg, _, train, _, _, _ = st
+    batch = {"tokens": torch.as_tensor(train["tokens"][:LM_BATCH]).cuda()}
+    for who, masks in (("straggler", strag_masks),
+                       ("capable", make_full_masks(cfg, "cuda"))):
+        out, tap = {}, RouteTap()
+        for kernels, mode in (("reference", "record"), ("cuda", "replay")):
+            leaves = dict(tree_paths(params))
+            for v in leaves.values():
+                v.requires_grad_(True)
+            rt = transformer.default_runtime()
+            rt["kernels"], rt["mask_block"] = kernels, BLOCK
+            with tap.use(mode):
+                loss = transformer.lm_loss(params, batch, cfg, rt, masks)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+            for v in leaves.values():
+                v.requires_grad_(False)
+            out[kernels] = (float(loss.detach()), dict(zip(leaves, grads)))
+            del grads, loss
+        tap.report(f"Granite step {who}, plain choices replayed",
+                   cfg.num_layers, cfg.num_experts_per_tok, gate=True)
+        (la, ga), (lb, gb) = out["cuda"], out["reference"]
+        finite = all(bool(torch.isfinite(v).all()) for v in ga.values())
+        worst, at = max((float((ga[k] - gb[k]).abs().max())
+                         / max(float(gb[k].abs().max()), 1e-30), k)
+                        for k in gb)
+        log(f"Granite step {who}: loss {la:.7f} vs {lb:.7f}, worst max|grad "
+            f"diff|/max|grad| {worst:.3e} ({at}), all finite {finite}")
+        if not (finite and abs(la - lb) <= F32_TOL * abs(lb)
+                and worst <= F32_TOL):
+            raise AssertionError(f"Granite {who} step: kernel path disagrees "
+                                 f"with the plain path ({worst} at {at})")
+        del out, ga, gb, tap
+        _free()
+
+
+def check_granite_dispatch(st, params, strag_masks) -> None:
+    """``moe_fwd`` grouped against dense on the middle layer's activations
+    at full width, at a capacity factor of E / k (every expert has a slot
+    for every token, so nothing overflows), without a mask and with a
+    straggler's expert mask; and how many choices the default capacity
+    factor of 1.25 drops there."""
+    from repro_torch.models import moe, transformer
+    cfg, _, train, _, _, _ = st
+    layer = cfg.num_layers // 2
+    batch = {"tokens": torch.as_tensor(train["tokens"][:LM_BATCH]).cuda()}
+    seen, orig = [], moe.moe_fwd
+
+    def grab(p, x, c, **kw):
+        seen.append((p, x))
+        return orig(p, x, c, **kw)
+
+    moe.moe_fwd = grab
+    try:
+        with torch.no_grad():
+            transformer.lm_loss(params, batch, cfg,
+                                transformer.default_runtime(), None)
+    finally:
+        moe.moe_fwd = orig
+    p, h = seen[layer]
+    del seen
+    cf = cfg.num_experts / cfg.num_experts_per_tok
+    t = h.shape[0] * h.shape[1]
+    for who, em in (("no mask", None),
+                    ("straggler mask", strag_masks["experts"][layer])):
+        with torch.no_grad():
+            got = moe.moe_fwd(p, h, cfg, expert_mask=em, impl="grouped",
+                              capacity_factor=cf)
+            want = moe.moe_fwd(p, h, cfg, expert_mask=em, impl="dense")
+            _, idx = moe._route(p, h.reshape(t, -1), cfg, em)
+        err = float((got - want).abs().max())
+        tol = F32_TOL * float(want.abs().max())
+        counts = torch.zeros(cfg.num_experts, dtype=torch.long,
+                             device="cuda").index_add_(
+            0, idx.reshape(-1), torch.ones_like(idx.reshape(-1)))
+        cap = moe.capacity(t, cfg, 1.25)
+        over = int((counts - cap).clamp(min=0).sum())
+        log(f"check moe_fwd grouped (capacity factor {cf:g}, {t} slots an "
+            f"expert) against dense, layer {layer}, {who}: max|err|="
+            f"{err:.3e} tol={tol:.3e}; at capacity factor 1.25 ({cap} "
+            f"slots) {over} of {t * cfg.num_experts_per_tok} choices "
+            f"overflow")
+        if not (err <= tol and math.isfinite(err)):
+            raise AssertionError(f"grouped dispatch disagrees with dense "
+                                 f"({who}): {err} > {tol}")
+        del got, want
+    _free()
+
+
+def granite_path(st) -> dict:
+    """Helios then syn, two rounds each, on the kernel path with every
+    kernel's counter zeroed before and read after; then the one-step and
+    two-round holds against the plain path, the plain path's expert
+    choices replayed into the kernel path."""
+    from repro_torch.models.module import tree_paths
+    cfg = st[0]
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    hel = None
+    for scheme in ("helios", "syn"):
+        run = make_lm_run(scheme, "cuda", st)
+        hist, wall = timed_run(run, 2)
+        log(f"Granite path {scheme}: 2 rounds in {wall:.3f} s")
+        for row in hist:
+            log("  history", json.dumps(row))
+            if not (math.isfinite(row["loss"]) and math.isfinite(row["ce"])):
+                raise AssertionError(f"Granite {scheme}: non-finite loss or "
+                                     f"ce in {row}")
+        for k, v in tree_paths(run.global_params):
+            if not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"Granite {scheme}: non-finite {k}")
+        if scheme == "helios":
+            hel = run
+        del run
+    launches = _all_launches()
+    log("Granite path launches", json.dumps(launches))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"Granite path peak device memory {peak:.2f} GiB "
+        f"({cfg.num_layers} layers)")
+    # each local step of each client runs every layer's attention once
+    per_round = cfg.num_layers * 2 * 4
+    want = {"masked_matmul": 0, "masked_matmul_dk": 0,
+            "flash_attention": 4 * per_round, "ssd_diag": 0}
+    if launches != want:
+        raise AssertionError(f"Granite path launches {launches}, want {want}"
+                             f" ({per_round} flash a round; the MoE block "
+                             f"takes no kernel, as in the reference)")
+    from repro_torch.kernels import flash_attention as FA
+    flash = dict(FA.CONFIG_LAUNCHES)
+    log("Granite path flash_attention launches by copy variant",
+        json.dumps(flash))
+    if flash != {"aligned": want["flash_attention"], "unaligned": 0}:
+        raise AssertionError(f"Granite flash calls not all on 16-byte "
+                             f"copies: {flash}")
+    if peak > GR_PEAK_GIB:
+        raise AssertionError(f"Granite path peak {peak:.2f} GiB passes "
+                             f"{GR_PEAK_GIB} GiB: cut its depth")
+    strag = [r for c, r in zip(hel.clients, hel.history[-1]["ratios"])
+             if c.is_straggler]
+    if not strag or max(strag) >= 1.0:
+        raise AssertionError(f"Granite helios straggler ratios not below 1: "
+                             f"{strag}")
+    strag_masks = next(c for c in hel.clients
+                       if c.is_straggler).helios_state["masks"]
+    params = hel.global_params
+    del hel
+    _free()
+    check_granite_step(st, params, strag_masks)
+    check_granite_dispatch(st, params, strag_masks)
+    del params
+    _free()
+    # A routing flip sends a token to another expert, so the unreplayed
+    # paths part by more than rounding: print their drift over two rounds
+    # of 2 local steps beside the plain path's own drift under a 2^-23
+    # nudge of its initial weights.
+    host = {}
+    for name, kernels, nudge in (("cuda", "cuda", 0.0),
+                                 ("plain", "reference", 0.0),
+                                 ("nudged", "reference", 2.0 ** -23)):
+        run = make_lm_run("helios", kernels, st, nudge=nudge)
+        timed_run(run, 2)
+        host[name] = _host_params(run)
+        del run
+        _free()
+    log(f"Granite helios 2 rounds x 2 local steps, lr 0.05, unreplayed: "
+        f"max|param diff| kernel vs plain "
+        f"{_host_diff(host['cuda'], host['plain']):.3e}, plain vs nudged "
+        f"plain {_host_diff(host['plain'], host['nudged']):.3e}")
+    # Two rounds of one local step.  After the first aggregation the two
+    # runs' params differ by rounding too, and the router amplifies that
+    # (its weights move along the hidden states it multiplies), so each
+    # kernel-path step replays the plain path's choices from the same
+    # params and batch; those are also compared, ungated, with the plain
+    # run's own choices.
+    host, hists, tap, cross = {}, {}, RouteTap(), RouteTap()
+    for name, kernels in (("plain", "reference"), ("cuda", "cuda")):
+        run = make_lm_run("helios", kernels, st, local_steps=1)
+        if name == "plain":
+            record_routing(run, cross)
+        else:
+            shadow_plain_routing(run, tap, cross)
+        hists[name], _ = timed_run(run, 2)
+        host[name] = _host_params(run)
+        del run
+        _free()
+    k = cfg.num_experts_per_tok
+    tap.report("Granite helios 2 rounds x 1 local step, each step's plain "
+               "choices from the same params replayed into the kernel "
+               "path", cfg.num_layers, k, gate=True)
+    cross.report("Granite helios 2 rounds x 1 local step, the plain run's "
+                 "choices against the plain path's on the kernel run's "
+                 "params (ungated)", cfg.num_layers, k, gate=False)
+    diff = _host_diff(host["cuda"], host["plain"])
+    log(f"Granite helios 2 rounds x 1 local step, lr 0.05, plain choices "
+        f"replayed: max|param diff| kernel vs plain {diff:.3e}")
+    del host, tap, cross
+    _free()
+    if not diff <= 1e-4:
+        raise AssertionError(f"Granite kernel path drifts from the plain "
+                             f"path: {diff}")
+    for x, y in zip(hists["cuda"], hists["plain"]):
+        for key in ("cycle", "time", "volumes", "ratios"):
+            if x[key] != y[key]:
+                raise AssertionError(f"Granite history {key} differs: "
+                                     f"{x[key]} vs {y[key]}")
+        if abs(x["ce"] - y["ce"]) > 1e-4 or abs(x["loss"] - y["loss"]) > 1e-4:
+            raise AssertionError(f"Granite history ce/loss differ: {x} vs "
+                                 f"{y}")
+    log(f"Granite phase peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    return launches
+
+
+def time_granite_flash(worst: float, launches: int, per_round: int) -> dict:
+    """The flash kernel against its plain version and SDPA at the MoE
+    path's shape, beside the bounds, and the recompute backward."""
+    t, bd, flops = _flash_times(*GR_FLASH, seed=23)
+    _flash_line(GR_FLASH, t, bd, flops, per_round)
+    return {"shape": list(GR_FLASH[:4]), "launches": launches,
+            "max_abs_err": worst, **t, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"], "bound_f32_ms": bd["bound_f32_ms"],
+            "recompute_bwd_ms_per_round": t["recompute_bwd_ms"] * per_round}
+
+
+def time_granite_round(st) -> None:
+    """One helios Granite round (no evaluation), kernel path against plain
+    path in turns, then one kernel-path round under the profiler."""
+    walls = {"cuda": [], "reference": []}
+    for kernels in ("cuda", "reference", "reference", "cuda"):
+        run = make_lm_run("helios", kernels, st)
+        timed_run(run, 1, eval_every=0)                  # warm-up round
+        _, wall = timed_run(run, 1, eval_every=0)
+        walls[kernels].append(wall)
+        if kernels == "cuda" and len(walls["cuda"]) == 2:
+            profile_round(run, "helios Granite round", host_top=8,
+                          groups=DISPATCH_OPS)
+        del run
+        _free()
+    log("Granite round wall s helios (1 round after a warm-up round): "
+        + json.dumps(walls))
+
+
+def granite_phase(kernels: list) -> None:
+    """Phases 3e, 4h and 5d; adds the MoE path's flash launches and its
+    shape's times to the flash row of ``kernels``."""
+    t0 = time.perf_counter()
+    worst = check_granite_flash()
+    st = granite_setting()
+    launches = granite_path(st)
+    per_round = launches["flash_attention"] // 4
+    gr = time_granite_flash(worst, launches["flash_attention"], per_round)
+    time_granite_round(st)
+    row = next(k for k in kernels if k["name"] == "flash_attention")
+    row["launches_by_path"] = {"lm": row["launches"],
+                               "granite": launches["flash_attention"]}
+    row["launches"] += launches["flash_attention"]
+    row["granite"] = gr
+    log(f"Granite phase took {time.perf_counter() - t0:.1f} s")
+
+
 def _device_us(e) -> float:
     """Self device time of a profiler row (the attribute was renamed)."""
     t = getattr(e, "self_device_time_total", None)
@@ -2083,6 +2546,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    start = time.perf_counter()
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     line = card_line()
     log("card:", line)
@@ -2142,7 +2606,12 @@ def main() -> int:
     kernels.append(time_ssd(ssd_worst, hy_launches["ssd_diag"],
                             hy_launches["ssd_diag"] // 4))
     time_hybrid_round(hy_st)
+    del hy_st
+    _free()
 
+    granite_phase(kernels)
+
+    log(f"chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(line)
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 # repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
 """Configuration dataclasses for the PyTorch port (the fields its slices read).
 
-* :class:`ModelConfig`  — architecture of a paper-testbed CNN, a dense LM or
-  the Mamba2 + shared-attention hybrid.
+* :class:`ModelConfig`  — architecture of a paper-testbed CNN, a dense or
+  MoE LM, or the Mamba2 + shared-attention hybrid.
 * :class:`HeliosConfig` — the paper's soft-training knobs (Sections IV-VI).
 
 Frozen dataclasses, field for field the same names and defaults as the JAX
@@ -20,8 +20,8 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description; ``family`` is ``cnn``, ``dense`` or
-    ``hybrid``.
+    """Architecture description; ``family`` is ``cnn``, ``dense``, ``moe``
+    or ``hybrid``.
 
     The LM sizes have no default in the reference; here they default to 0
     so the CNN configs need not name them."""
@@ -41,6 +41,16 @@ class ModelConfig:
     activation: str = "silu"               # silu (SwiGLU) | gelu
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
+
+    # ---- MoE ----
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    num_shared_experts: int = 0
+    moe_d_ff: int = 0                      # per-expert hidden size
+    first_k_dense: int = 0                 # leading dense layers (DeepSeek-V2)
+
+    # ---- MLA (DeepSeek-V2): not ported; the LM refuses it ----
+    use_mla: bool = False
 
     # ---- SSM / hybrid (Mamba2, Zamba2) ----
     ssm_state: int = 0

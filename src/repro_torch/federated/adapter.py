@@ -5,7 +5,8 @@ Everything that varies by model family — the batch dict (images + labels
 or a token stream), the eval metric (accuracy or cross-entropy), per-unit
 cycle scores and parameter-space mask expansion — lives behind an adapter,
 so the engine stays family-blind.  The port has the CNN testbed, the
-dense LM and the hybrid; :func:`make_adapter` dispatches on ``cfg.family``.
+dense and MoE LMs and the hybrid; :func:`make_adapter` dispatches on
+``cfg.family``.
 """
 from __future__ import annotations
 
@@ -116,10 +117,10 @@ class CNNAdapter(FamilyAdapter):
 
 
 class TokenLMAdapter(FamilyAdapter):
-    """Token-stream LM (the dense and hybrid families): axis-driven scores,
-    cross-entropy eval, logical-axes mask expansion.  ``rt`` carries
-    ``kernels`` into the family's loss (the dense MLP and attention, or
-    the hybrid's SSD intra-chunk term)."""
+    """Token-stream LM (the dense, MoE and hybrid families): axis-driven
+    scores, cross-entropy eval, logical-axes mask expansion.  ``rt``
+    carries ``kernels`` into the family's loss (the dense MLP and
+    attention, or the hybrid's SSD intra-chunk term)."""
 
     metric_name = "ce"
 
@@ -151,7 +152,7 @@ class TokenLMAdapter(FamilyAdapter):
 
 
 _ADAPTERS = {"cnn": CNNAdapter, "dense": TokenLMAdapter,
-             "hybrid": TokenLMAdapter}
+             "moe": TokenLMAdapter, "hybrid": TokenLMAdapter}
 
 
 def make_adapter(cfg: ModelConfig, kernels: str, mask_block: int,

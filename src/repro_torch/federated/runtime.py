@@ -571,7 +571,8 @@ class AsyncFLRun(FLRun):
             raise NotImplementedError(
                 f"{type(self).__name__} runs the CNN testbed only: the "
                 f"{self.cfg.family!r} family needs vmap rules for its "
-                "flash_attention / ssd_diag Functions (ROADMAP.md item 19)")
+                "flash_attention / ssd_diag Functions, the moe family a "
+                "vmapped expert dispatch too (ROADMAP.md item 19)")
         #: one tensor per key for the whole run, so the kernels' live tables
         #: of a capable cohort are built once
         self._ones = ST.full_masks(self.adapter.schema, self.device)

@@ -1,5 +1,5 @@
-"""Model API of the port: family dispatch (the paper CNNs, the dense LM and
-the Mamba2 + shared-attention hybrid)."""
+"""Model API of the port: family dispatch (the paper CNNs, the dense and
+MoE LMs and the Mamba2 + shared-attention hybrid)."""
 from __future__ import annotations
 
 import dataclasses
@@ -22,7 +22,7 @@ class ModelAPI:
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return ModelAPI(cfg, transformer.lm_spec(cfg), transformer.lm_loss,
                         transformer.mask_schema(cfg))
     if cfg.family == "hybrid":
@@ -31,8 +31,10 @@ def build(cfg: ModelConfig) -> ModelAPI:
     if cfg.family == "cnn":
         return ModelAPI(cfg, cnn.cnn_spec(cfg), cnn.cnn_loss,
                         cnn.cnn_mask_schema(cfg))
-    raise NotImplementedError(f"the port has the cnn, dense and hybrid "
-                              f"families, not {cfg.family!r}")
+    raise NotImplementedError(
+        f"the port has the cnn, dense, moe and hybrid families, not "
+        f"{cfg.family!r}; vlm waits (ROADMAP.md, modules to port, item 9), "
+        f"ssm (xlstm) and encdec too (item 15)")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,

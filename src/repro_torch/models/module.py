@@ -10,7 +10,8 @@ prepends a ``layers`` axis to every leaf of a per-layer spec.
 
 Parameters, gradients and masks are plain nested dicts of tensors with the
 spec's structure; :func:`tree_map`, :func:`tree_paths` and
-:func:`unflatten` walk them.
+:func:`unflatten` walk them, and :func:`unstack` splits a stack into its
+layers.
 """
 from __future__ import annotations
 
@@ -104,6 +105,15 @@ def tree_map(fn, tree, *rest):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     return fn(tree, *rest)
+
+
+def unstack(tree, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked tree (leading ``layers``
+    axis on every leaf).  One ``unbind`` a leaf: its backward stacks the
+    layers' gradients once, where indexing each layer (``t[i]``) builds a
+    full-size zero-filled gradient a layer and adds them up."""
+    parts = tree_map(lambda t: t.unbind(0), tree)
+    return [tree_map(lambda p: p[i], parts) for i in range(n)]
 
 
 def tree_leaves(tree) -> list:

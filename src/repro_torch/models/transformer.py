@@ -1,16 +1,20 @@
 # repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
-"""Decoder-only LM assembly, dense family: the training loss.
+"""Decoder-only LM assembly, dense and MoE families: the training loss.
 
 The layer params are STACKED as in the reference (a leading ``layers`` axis
-on every leaf of ``blocks``), so Eq. 1 scores, mask expansion and Eq. 10
-aggregation see the reference's layouts.  The backbone is a Python loop
-over the layers; the reference's ``lax.scan`` and remat are compile devices
-with the same numbers.
+on every leaf of a stack), so Eq. 1 scores, mask expansion and Eq. 10
+aggregation see the reference's layouts.  The dense family has one stack,
+``blocks``; the MoE family a ``moe_blocks`` stack, after a
+``dense_blocks`` stack of ``first_k_dense`` layers where the config has
+them.  The backbone is a Python loop over the layers; the reference's
+``lax.scan`` and remat are compile devices with the same numbers.
 
 Helios masks enter as a dict of stacked unit masks
-``{"heads": (L, H), "mlp": (L, d_ff)}``, sliced per layer; masked-out units
-drop out of the forward pass, so their parameters get zero gradient.
-Prefill and decode are not ported yet: they run no kernel.
+``{"heads": (L, H), "mlp": (L, d_ff)}`` (MoE: ``"experts": (L, E)``, with
+stack-scoped head keys such as ``"moe_blocks:heads"`` when there are two
+stacks), sliced per layer; masked-out units drop out of the forward pass,
+so their parameters get zero gradient.  Prefill and decode are not ported
+yet: they run no kernel.
 """
 from __future__ import annotations
 
@@ -21,7 +25,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models.module import stack, tree_map
+from repro_torch.models import moe
+from repro_torch.models.module import stack, unstack
 
 # ---------------------------------------------------------------------------
 # Specs
@@ -29,20 +34,25 @@ from repro_torch.models.module import stack, tree_map
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe") or cfg.use_mla:
         raise NotImplementedError(
-            f"the port's LM is the dense family only, got {cfg.family!r}; "
-            "MoE, MLA and VLM wait (ROADMAP.md, modules to port, item 9)")
+            f"the port's LM has the dense and MoE families, got "
+            f"{cfg.family!r} (use_mla={cfg.use_mla}); MLA and VLM wait "
+            f"(ROADMAP.md, modules to port, item 9)")
 
 
-def _block_spec(cfg: ModelConfig):
-    return {
+def _block_spec(cfg: ModelConfig, kind: str):
+    spec = {
         "attn_norm": L.norm_spec(cfg.d_model, cfg.norm),
         "attn": L.attention_spec(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                                  cfg.resolved_head_dim, cfg.qkv_bias),
         "mlp_norm": L.norm_spec(cfg.d_model, cfg.norm),
-        "mlp": L.mlp_spec(cfg.d_model, cfg.d_ff, cfg.activation),
     }
+    if kind == "moe":
+        spec["moe"] = moe.moe_spec(cfg)
+    else:
+        spec["mlp"] = L.mlp_spec(cfg.d_model, cfg.d_ff, cfg.activation)
+    return spec
 
 
 def lm_spec(cfg: ModelConfig):
@@ -50,24 +60,50 @@ def lm_spec(cfg: ModelConfig):
     spec: Dict[str, Any] = {"embed": L.embed_spec(cfg.padded_vocab,
                                                   cfg.d_model,
                                                   cfg.tie_embeddings)}
-    spec["blocks"] = stack(_block_spec(cfg), cfg.num_layers)
+    if cfg.family == "moe":
+        if cfg.first_k_dense:
+            spec["dense_blocks"] = stack(_block_spec(cfg, "dense"),
+                                         cfg.first_k_dense)
+        spec["moe_blocks"] = stack(_block_spec(cfg, "moe"),
+                                   cfg.num_layers - cfg.first_k_dense)
+    else:
+        spec["blocks"] = stack(_block_spec(cfg, "dense"), cfg.num_layers)
     spec["final_norm"] = L.norm_spec(cfg.d_model, cfg.norm)
     return spec
 
 
 def mask_schema(cfg: ModelConfig) -> Dict[str, tuple]:
-    """Helios maskable-unit table: key -> (num_layers, units)."""
+    """Helios maskable-unit table: key -> (num_layers, units).
+
+    A MoE model with a leading dense stack uses stack-scoped head keys
+    ("moe_blocks:heads") so scores and masks align with each stack.
+    """
     _check_family(cfg)
+    if cfg.family == "moe":
+        n_moe = cfg.num_layers - cfg.first_k_dense
+        if cfg.first_k_dense:
+            return {"dense_blocks:heads": (cfg.first_k_dense, cfg.num_heads),
+                    "moe_blocks:heads": (n_moe, cfg.num_heads),
+                    "mlp": (cfg.first_k_dense, cfg.d_ff),
+                    "experts": (n_moe, cfg.num_experts)}
+        return {"heads": (cfg.num_layers, cfg.num_heads),
+                "experts": (cfg.num_layers, cfg.num_experts)}
     return {"heads": (cfg.num_layers, cfg.num_heads),
             "mlp": (cfg.num_layers, cfg.d_ff)}
 
 
-def _stack_masks(masks, n_layers: int):
-    """The stack's mask slices under canonical keys (heads / mlp)."""
+def _stack_masks(masks, name: str, kind: str, n_layers: int):
+    """Per-stack mask slices under canonical keys (heads / mlp / experts)."""
     if not masks:
         return {}
-    return {k: masks[k] for k in ("heads", "mlp")
-            if k in masks and masks[k].shape[0] == n_layers}
+    sl = {}
+    hk = f"{name}:heads" if f"{name}:heads" in masks else "heads"
+    if hk in masks and masks[hk].shape[0] == n_layers:
+        sl["heads"] = masks[hk]
+    ok = "experts" if kind == "moe" else "mlp"
+    if ok in masks and masks[ok].shape[0] == n_layers:
+        sl[ok] = masks[ok]
+    return sl
 
 
 # ---------------------------------------------------------------------------
@@ -75,11 +111,12 @@ def _stack_masks(masks, n_layers: int):
 # ---------------------------------------------------------------------------
 
 
-def _block_fwd(p, x, positions, cfg, rt, *, head_mask=None, mlp_mask=None):
+def _block_fwd(p, x, positions, cfg, rt, *, kind: str, head_mask=None,
+               mlp_mask=None, expert_mask=None):
     """One pre-norm block.  ``rt["kernels"] == "cuda"`` routes the causal
     self-attention through the flash kernel (unless the runtime asks for
     the chunked lowering) and the masked MLP through the masked-matmul
-    pair."""
+    pair; the MoE block takes no kernel, as in the reference."""
     kern = rt.get("kernels")
     on_kernels = kern is not None and ops.canonical_impl(kern) == ops.CUDA
     attn_impl = ops.CUDA if (on_kernels and rt["attn_impl"] != "chunked") \
@@ -88,19 +125,36 @@ def _block_fwd(p, x, positions, cfg, rt, *, head_mask=None, mlp_mask=None):
     x = x + L.attention_fwd(p["attn"], h, positions, theta=cfg.rope_theta,
                             impl=attn_impl, head_mask=head_mask)
     h = L.apply_norm(p["mlp_norm"], x, cfg.norm)
-    y = L.mlp_fwd(p["mlp"], h, cfg.activation, unit_mask=mlp_mask,
-                  kernels=kern, mask_block=rt.get("mask_block", 128))
+    if kind == "moe":
+        y = moe.moe_fwd(p["moe"], h, cfg, expert_mask=expert_mask,
+                        impl=rt["moe_impl"], moe_groups=rt["moe_groups"])
+    else:
+        y = L.mlp_fwd(p["mlp"], h, cfg.activation, unit_mask=mlp_mask,
+                      kernels=kern, mask_block=rt.get("mask_block", 128))
     return x + y
 
 
+def _stacks(params):
+    """Ordered (name, kind) of the layer stacks present."""
+    return [(name, kind) for name, kind in (("dense_blocks", "dense"),
+                                            ("moe_blocks", "moe"),
+                                            ("blocks", "dense"))
+            if name in params]
+
+
 def _backbone(params, x, positions, cfg, rt, masks=None):
-    stacked = params["blocks"]
-    n_layers = stacked["attn"]["wq"].shape[0]
-    sl = _stack_masks(masks, n_layers)
-    for i in range(n_layers):
-        x = _block_fwd(tree_map(lambda t: t[i], stacked), x, positions, cfg,
-                       rt, head_mask=sl["heads"][i] if "heads" in sl else None,
-                       mlp_mask=sl["mlp"][i] if "mlp" in sl else None)
+    for name, kind in _stacks(params):
+        stacked = params[name]
+        n_layers = stacked["attn"]["wq"].shape[0]
+        sl = _stack_masks(masks, name, kind, n_layers)
+        unit = "experts" if kind == "moe" else "mlp"
+        for i, p in enumerate(unstack(stacked, n_layers)):
+            um = sl[unit][i] if unit in sl else None
+            x = _block_fwd(
+                p, x, positions, cfg, rt,
+                kind=kind, head_mask=sl["heads"][i] if "heads" in sl else None,
+                mlp_mask=um if kind == "dense" else None,
+                expert_mask=um if kind == "moe" else None)
     return L.apply_norm(params["final_norm"], x, cfg.norm)
 
 
@@ -112,7 +166,8 @@ def _backbone(params, x, positions, cfg, rt, masks=None):
 def default_runtime() -> dict:
     """Execution knobs threaded through the model functions (the
     reference's ``default_runtime`` at training lengths)."""
-    return {"attn_impl": "auto", "kernels": ops.REFERENCE, "mask_block": 128}
+    return {"attn_impl": "auto", "moe_impl": "grouped", "moe_groups": 1,
+            "kernels": ops.REFERENCE, "mask_block": 128}
 
 
 def _embed_inputs(params, batch, cfg):

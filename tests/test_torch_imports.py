@@ -55,6 +55,9 @@ def test_port_imports_with_jax_blocked():
         "BernoulliDropout, SimClock, AsynScheme, AfoScheme)\n"
         "from repro_torch.configs import RESNET18\n"
         "from repro_torch.models.cnn import resnet18_fwd\n"
+        "from repro_torch.configs import GRANITE_MOE_1B_A400M\n"
+        "from repro_torch.models import build, moe\n"
+        "assert build(GRANITE_MOE_1B_A400M).mask_schema\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m, v in "
         "sys.modules.items() if v is not None)\n"
         "print('ok')\n")

@@ -147,9 +147,9 @@ def test_make_adapter_dispatch():
     assert lm.rt["kernels"] == "cuda" and lm.eval_rt["kernels"] == "reference"
     assert isinstance(make_adapter(TC.reduced(TC.ALEXNET), "cuda", 16, dev),
                       CNNAdapter)
-    moe = TC.ModelConfig(name="moe", family="moe")
+    vlm = TC.ModelConfig(name="vlm", family="vlm")
     with pytest.raises(NotImplementedError, match="supported families"):
-        make_adapter(moe, "cuda", 16, dev)
+        make_adapter(vlm, "cuda", 16, dev)
 
 
 def test_lm_entry_points_refuse_without_gpu(setting, monkeypatch):
