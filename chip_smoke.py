@@ -61,8 +61,28 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    turns and a profiled batched round; populations of 16 and 64 clients
    (half stragglers, IID, helios, 1 local step of batch 16): the round
    wall of ``FLRun`` against ``BatchedFLRun`` on both paths, the launches
-   of a round, a profiled batched round and its peak memory; then the
-   client-axis kernels' device time, ``torch.bmm`` at P = 1 and the bound;
+   of a round, a profiled batched round and its peak memory;
+4i. the gauntlet's last schemes and the comparison drivers on the same
+   setting: ``run_sync(2)`` of scaffold, fluid and delayed on ``FLRun``
+   (120 single-client masked launches a round each) and on
+   ``BatchedFLRun`` (30 client-axis launches a round for scaffold and
+   delayed, 60 for fluid, none single-client), counters zeroed before
+   and read after each run; at one local step, two rounds of both
+   engines held at 1e-4 against ``FLRun``'s plain path (history's cycle,
+   time, volumes and ratios identical, ratios to one ulp on the batched
+   engine), ``run_async(4)`` of scaffold and delayed (the sequential
+   fallback) kernel against plain, SCAFFOLD's controls at 1e-4 / (K·lr),
+   each beside a 2^-23-nudged plain twin's drift;
+   ``repro_torch.drivers.scheme_gauntlet`` at full width (4 + 4 non-IID,
+   12 rounds, evaluation every round) on the kernel path, the plain path
+   and a nudged plain twin: params finite, engines, sim times, bytes,
+   cycles and clocks identical on both paths, scaffold's uplink twice
+   helios's, Eq. 9 holding; each scheme's final accuracy and wall per
+   history row printed; ``repro_torch.drivers.heterogeneous_fl``'s
+   five-scheme table (2 + 2, 5 rounds, lr 0.05) on both engines, every
+   loss finite; one SCAFFOLD round under the profiler (the masked pair at
+   P = 1); then the client-axis kernels' device time, ``torch.bmm`` at
+   P = 1 and the bound;
 3b. hold the flash-attention kernel against its plain version at the LM
    slice's shape (4, 32, 512, 128) causal, at (2, 8, 300, 64) causal and
    ragged and at (2, 4, 256, 16) full, f32 and bf16, on 16-byte copies,
@@ -1421,6 +1441,238 @@ def population_path(st) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4i: SCAFFOLD, FLuID, delayed-gradient and the comparison drivers
+# ---------------------------------------------------------------------------
+
+NEW_SCHEMES = ("scaffold", "fluid", "delayed")
+#: cohorts of a batched round on the 2 + 2 fleet: fluid soft-trains its
+#: stragglers as a second cohort, scaffold and delayed train one full-model
+#: cohort of 4
+NEW_COHORTS = {"scaffold": 1, "fluid": 2, "delayed": 1}
+
+
+def _counts() -> tuple:
+    """(single-client, client-axis) launch counters of the masked pair."""
+    from repro_torch.kernels import masked_matmul as K
+    return dict(K.LAUNCHES), dict(K.CLIENT_LAUNCHES)
+
+
+def _add(total: dict, got: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in got.items()}
+
+
+def _hold_controls(what: str, a, b, tol: float = math.inf) -> float:
+    """SCAFFOLD's ``c_global`` and every client's control row, run ``a``
+    against run ``b``, within ``tol``; returns the worst |diff|."""
+    if sorted(a._ctrl_store._rows) != sorted(b._ctrl_store._rows):
+        raise AssertionError(f"{what}: control rows of other clients")
+    pairs = [(a._c_global, b._c_global)] + [
+        (a._ctrl_store.row(c), b._ctrl_store.row(c))
+        for c in b._ctrl_store._rows]
+    worst = max(float((x[k] - v).abs().max()) for x, y in pairs
+                for k, v in y.items())
+    if not worst <= tol:
+        raise AssertionError(f"{what}: controls differ by {worst} (tol "
+                             f"{tol})")
+    return worst
+
+
+def schemes_path(st) -> dict:
+    """Phase 4i on the AlexNet 2 + 2 setting: scaffold, fluid and delayed on
+    ``FLRun`` and ``BatchedFLRun`` with exact launch counts, their holds
+    against the plain path at one local step, the scheme gauntlet at full
+    width on both paths, the five-scheme table on both engines, and a
+    profiled SCAFFOLD round.  Returns the launches by path, single-client
+    and client-axis."""
+    from repro_torch.configs import ALEXNET
+    from repro_torch.drivers.heterogeneous_fl import heterogeneous_fl
+    from repro_torch.drivers.scheme_gauntlet import scheme_gauntlet
+    from repro_torch.federated import BatchedFLRun
+    from repro_torch.kernels import masked_matmul as K
+    from repro_torch.models import init_params
+    t0 = time.perf_counter()
+    steps = 5
+    single, client = {}, {}
+    # 1. exact launches: FLRun 6 single-client calls a local step a client
+    # (120 a round), BatchedFLRun 6 client-axis calls a local step a cohort
+    for scheme in NEW_SCHEMES:
+        K.reset_launches()
+        run = make_run(scheme, "cuda", st, local_steps=steps)
+        hist, wall = timed_run(run, 2)
+        single = _add(single, _expect_launches(f"FLRun {scheme}",
+                                               2 * 4 * steps))
+        if any(K.CLIENT_LAUNCHES.values()):
+            raise AssertionError(f"FLRun {scheme}: client-axis launches "
+                                 f"{K.CLIENT_LAUNCHES}")
+        log(f"FLRun {scheme}: 2 rounds in {wall:.3f} s; history "
+            + json.dumps([{k: r[k] for k in ("cycle", "time", "acc",
+                                              "ratios")} for r in hist]))
+        _finite(run, f"FLRun {scheme}")
+        K.reset_launches()
+        run = make_run(scheme, "cuda", st, local_steps=steps,
+                       engine=BatchedFLRun)
+        hist, wall = timed_run(run, 2)
+        client = _add(client, _expect_client_launches(
+            f"BatchedFLRun {scheme}", 2 * steps * NEW_COHORTS[scheme],
+            {"splitk": 4, "tile128": 2}))
+        log(f"BatchedFLRun {scheme}: 2 rounds in {wall:.3f} s")
+        _finite(run, f"BatchedFLRun {scheme}")
+        strag = [r for c, r in zip(run.clients, hist[-1]["ratios"])
+                 if c.is_straggler]
+        if (max(strag) < 1.0) != (scheme == "fluid"):
+            raise AssertionError(f"{scheme}: straggler ratios {strag}")
+    # 2. holds at one local step: FLRun and BatchedFLRun against FLRun's
+    # plain path over two rounds, run_async(4) (the sequential fallback)
+    # kernel against plain; SCAFFOLD's controls at 1e-4 / (K * lr), each
+    # engine's kernel path against its own plain path (a client's control
+    # row is its own update times 1/(K * lr), not averaged over the cohort
+    # as the global params are, so a fork at an AlexNet max-pool near-tie
+    # between the engines' roundings shows there 4x larger: printed
+    # beside the nudged twin's); each beside the plain path's drift from a
+    # 2^-23-nudged plain twin
+    ctrl_tol = 1e-4 / (1 * 0.05)
+    for scheme in NEW_SCHEMES:
+        runs = {name: make_run(scheme, kernels, st, local_steps=1,
+                               nudge=nudge, engine=engine)
+                for name, kernels, nudge, engine in (
+                    ("cuda", "cuda", 0.0, None),
+                    ("plain", "reference", 0.0, None),
+                    ("nudged", "reference", 2.0 ** -23, None),
+                    ("batched", "cuda", 0.0, BatchedFLRun),
+                    ("batched plain", "reference", 0.0, BatchedFLRun))}
+        for run in runs.values():
+            timed_run(run, 2)
+        d_seq = _hold_paths(f"FLRun {scheme}", runs["cuda"], runs["plain"],
+                            ("cycle", "time", "volumes", "ratios"))
+        d_bat = _hold_batched(f"BatchedFLRun {scheme}", runs["batched"],
+                              runs["plain"])
+        log(f"{scheme} run_sync(2) x 1 local step, max|param diff| against "
+            f"FLRun's plain path: FLRun kernel {d_seq:.3e}, BatchedFLRun "
+            f"kernel {d_bat:.3e} (against BatchedFLRun's plain path "
+            f"{_param_diff(runs['batched'], runs['batched plain']):.3e}); "
+            f"plain vs nudged plain "
+            f"{_param_diff(runs['plain'], runs['nudged']):.3e}")
+        if scheme == "scaffold":
+            held = [_hold_controls(f"{what} scaffold", runs[a], runs[b],
+                                   ctrl_tol)
+                    for what, a, b in (("FLRun", "cuda", "plain"),
+                                       ("BatchedFLRun", "batched",
+                                        "batched plain"))]
+            cross = _hold_controls("cross", runs["batched"], runs["plain"])
+            noise = _hold_controls("nudged", runs["nudged"], runs["plain"])
+            log(f"scaffold controls, max|diff| kernel vs plain (tol "
+                f"{ctrl_tol:.1e}): FLRun {held[0]:.3e}, BatchedFLRun "
+                f"{held[1]:.3e}; ungated: BatchedFLRun kernel vs FLRun plain"
+                f" {cross:.3e}, FLRun plain vs nudged plain {noise:.3e}")
+    for scheme in ("scaffold", "delayed"):
+        runs = {name: make_run(scheme, kernels, st, local_steps=1,
+                               nudge=nudge, engine=BatchedFLRun)
+                for name, kernels, nudge in (
+                    ("cuda", "cuda", 0.0), ("plain", "reference", 0.0),
+                    ("nudged", "reference", 2.0 ** -23))}
+        for run in runs.values():
+            timed_async(run, 4)
+        diff = _hold_paths(f"{scheme} run_async", runs["cuda"], runs["plain"],
+                           ("cycle", "time", "staleness"))
+        extra = ""
+        if scheme == "scaffold":
+            held = _hold_controls("async scaffold", runs["cuda"],
+                                  runs["plain"], ctrl_tol)
+            noise = _hold_controls("async nudged", runs["nudged"],
+                                   runs["plain"])
+            extra = f"; controls {held:.3e} (nudged {noise:.3e})"
+        log(f"{scheme} run_async(4) x 1 local step (sequential fallback), "
+            f"{runs['cuda'].events_processed} events: max|param diff| kernel "
+            f"vs plain {diff:.3e}, plain vs nudged plain "
+            f"{_param_diff(runs['plain'], runs['nudged']):.3e}{extra}")
+    # 3. the scheme gauntlet at full width, kernel path, plain path and a
+    # nudged plain twin
+    nudged = {k: v * (1 + 2.0 ** -23)
+              for k, v in init_params(ALEXNET, 0, "cuda").items()}
+    g = {}
+    for name, kernels, init in (("cuda", "cuda", None),
+                                ("plain", "reference", None),
+                                ("nudged", "reference", nudged)):
+        K.reset_launches()
+        doc, runs, walls = scheme_gauntlet(
+            ALEXNET, rounds=12, device="cuda", kernels=kernels,
+            init_params=init, out_path=str(
+                ROOT / "chiprun_out" / f"scheme_gauntlet_{name}.json"))
+        g[name] = doc["schemes"], runs, walls, _counts()
+        for scheme, run in runs.items():
+            _finite(run, f"gauntlet {name} {scheme}")
+    (cs, cr, cw, (g_single, g_client)), (ps, pr, pw, _), (ns, nr, _, _) = \
+        g["cuda"], g["plain"], g["nudged"]
+    for scheme in cs:
+        for key in ("engine", "sim_time", "uplink_mb", "downlink_mb"):
+            if cs[scheme][key] != ps[scheme][key]:
+                raise AssertionError(f"gauntlet {scheme}: {key} "
+                                     f"{cs[scheme][key]} vs {ps[scheme][key]}")
+        if [h["cycle"] for h in cr[scheme].history] != \
+                [h["cycle"] for h in pr[scheme].history] or \
+                [t["time"] for t in cs[scheme]["trajectory"]] != \
+                [t["time"] for t in ps[scheme]["trajectory"]]:
+            raise AssertionError(f"gauntlet {scheme}: cycles or clocks "
+                                 f"differ between the paths")
+        for side in (cs, ps):
+            if "prop2" in side[scheme] and \
+                    not side[scheme]["prop2"]["eq9_holds"]:
+                raise AssertionError(f"gauntlet {scheme}: Eq. 9 fails "
+                                     f"{side[scheme]['prop2']}")
+        rounds = max(len(cr[scheme].history), 1)
+        c = cs[scheme]
+        prop2 = f"; var_inflation {c['prop2']['variance_inflation']:.4f}" \
+            if "prop2" in c else ""
+        log(f"gauntlet {scheme:8s} {c['engine']:12s}: final acc kernel "
+            f"{c['final_acc']:.4f} plain {ps[scheme]['final_acc']:.4f} "
+            f"nudged plain {ns[scheme]['final_acc']:.4f}; max|param diff| "
+            f"kernel vs plain {_param_diff(cr[scheme], pr[scheme]):.3e}, "
+            f"plain vs nudged {_param_diff(pr[scheme], nr[scheme]):.3e}; "
+            f"sim_time {c['sim_time']:.2f}, uplink {c['uplink_mb']:.2f} MB, "
+            f"downlink {c['downlink_mb']:.2f} MB; wall per history row "
+            f"kernel {cw[scheme] / rounds:.4f} s, plain "
+            f"{pw[scheme] / rounds:.4f} s{prop2}")
+    if cs["scaffold"]["uplink_mb"] != 2 * cs["helios"]["uplink_mb"]:
+        raise AssertionError("gauntlet: scaffold's uplink is not twice "
+                             "helios's")
+    log(f"gauntlet masked launches (kernel path, 9 schemes): single-client "
+        f"{json.dumps(g_single)}, client-axis {json.dumps(g_client)}")
+    if min(g_client.values()) <= 0:
+        raise AssertionError(f"gauntlet: a client-axis kernel never "
+                             f"launched {g_client}")
+    # 4. the five-scheme table, both engines, kernel path, at lr 0.05: the
+    # driver's 0.1 (the reference's, for reduced widths) takes full-width
+    # AlexNet's loss to NaN within two rounds
+    t_single, t_client = {}, {}
+    for engine in ("sequential", "batched"):
+        K.reset_launches()
+        res = heterogeneous_fl(ALEXNET, devices=4, rounds=5, engine=engine,
+                               device="cuda", kernels="cuda", lr=0.05)
+        s1, c1 = _counts()
+        t_single, t_client = _add(t_single, s1), _add(t_client, c1)
+        log(f"five-scheme table ({engine}) masked launches: single-client "
+            f"{json.dumps(s1)}, client-axis {json.dumps(c1)}; rows "
+            + json.dumps({k: [h["cycle"], h["time"], h["acc"]]
+                          for k, h in ((k, v[-1]) for k, v in res.items())}))
+        if min((s1 if engine == "sequential" else c1).values()) <= 0 or \
+                not all(math.isfinite(r["loss"]) for v in res.values()
+                        for r in v):
+            raise AssertionError(f"five-scheme table ({engine}): {s1} {c1}")
+    # 5. a SCAFFOLD round under the profiler: every client at P = 1
+    run = make_run("scaffold", "cuda", st)
+    timed_run(run, 1, eval_every=0)
+    prof = profile_round(run, "scaffold round (FLRun 2 + 2, P = 1)")
+    log(f"scaffold round: the masked pair at P = 1 {prof['masked_ms']:.3f} ms,"
+        f" {prof['masked_ms'] / prof['wall_ms']:.4f} of the wall, "
+        f"{prof['masked_ms'] / prof['busy_ms']:.4f} of device busy time")
+    log(f"phase 4i took {time.perf_counter() - t0:.1f} s")
+    return {"single": {"schemes": single, "gauntlet": g_single,
+                       "table": t_single},
+            "client": {"schemes": client, "gauntlet": g_client,
+                       "table": t_client}}
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: the flash-attention kernel against its plain version
 # ---------------------------------------------------------------------------
 
@@ -2577,9 +2829,11 @@ def main() -> int:
     batched_launches = batched_path(st)
     time_batched_rounds(st)
     population = population_path(st)
+    scheme_launches = schemes_path(st)
     client_kernels = time_client_kernels(
         client_worst, {"batched": batched_launches,
-                       "population": population["launches"]})
+                       "population": population["launches"],
+                       **scheme_launches["client"]})
     del st
     _free()
     resnet_path()
@@ -2592,6 +2846,7 @@ def main() -> int:
     kernels = time_kernels(worst, {"alexnet": launches,
                                    "async": async_launches,
                                    "cohort": cohort_launches,
+                                   **scheme_launches["single"],
                                    "lm": lm_launches}, lm_times)
     kernels += client_kernels
     kernels.append(time_flash(flash_worst, lm_launches["flash_attention"],

@@ -288,8 +288,8 @@ class RingAllocator:
 
 
 class SnapshotRing:
-    """Device-side stacked snapshot store of the bucketed async engine, in
-    full precision (the reference's ``mode="fp32"``; its lossy modes are
+    """Device-side stacked snapshot store of the bucketed async engine and
+    of the delayed scheme's stale globals (:meth:`put`), in full precision (the reference's ``mode="fp32"``; its lossy modes are
     not ported).
 
     ``params`` is one tree whose leaves carry a leading (slots,) axis: row
@@ -316,6 +316,19 @@ class SnapshotRing:
         return self.alloc.scratch
 
     def read(self, agg: int) -> Params:
-        """Snapshot ``agg`` (tests / inspection)."""
+        """Snapshot ``agg``: views of its rows."""
         s = self.alloc.slot_of(agg)
         return tree_map(lambda x: x[s], self.params)
+
+    def put(self, agg: int, params: Params) -> int:
+        """Store ``params`` as snapshot ``agg`` from the host loop (the
+        delayed scheme's once-a-round write; the bucket engine writes in
+        :func:`mix_bucket_ring`).  Allocation recycles the oldest unanchored
+        slot, which may be the slot a caller just :meth:`read`: the write is
+        out of place (as the reference's ``.at[s].set``), so views taken by
+        an earlier ``read`` keep their values."""
+        s = self.alloc.alloc(agg)
+        idx = torch.tensor([s], device=_device(self.params))
+        self.params = tree_map(lambda r, x: r.index_copy(0, idx, x[None]),
+                               self.params, params)
+        return s

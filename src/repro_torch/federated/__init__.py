@@ -6,9 +6,13 @@ from repro_torch.federated.heterogeneity import (CAPABLE, TABLE_I, cycle_time,
 from repro_torch.federated.runtime import (AsyncFLRun, BatchedFLRun, Client,
                                           FLRun, setup_clients)
 from repro_torch.federated.schemes import (SCHEMES, AfoScheme, AsynScheme,
-                                           Scheme, make_scheme)
+                                           DelayedScheme, FluidScheme,
+                                           ScaffoldScheme, Scheme,
+                                           make_scheme)
 
 __all__ = ["AfoScheme", "ArrivalProcess", "AsyncFLRun", "AsynScheme",
            "BatchedFLRun", "BernoulliDropout", "CAPABLE", "Client",
-           "DropoutProcess", "Event", "FLRun", "JitteredArrival", "SCHEMES", "Scheme", "SimClock", "TABLE_I",
-           "cycle_time", "make_fleet", "make_scheme", "setup_clients"]
+           "DelayedScheme", "DropoutProcess", "Event", "FLRun", "FluidScheme",
+           "JitteredArrival", "SCHEMES", "ScaffoldScheme", "Scheme",
+           "SimClock", "TABLE_I", "cycle_time", "make_fleet", "make_scheme",
+           "setup_clients"]

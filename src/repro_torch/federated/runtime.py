@@ -10,9 +10,10 @@ real tensors on the run's device.
   ``participation`` samples a few) -> §IV.C pace over the cohort ->
   simulated times -> each member's cycle (Eq. 2 masks, masked local SGD,
   Eq. 1 scores) -> aggregation (Eq. 10) -> volume adaptation -> history.
-* ``run_async``, the asyn / afo event loop: one client cycle per completion
-  event, trained from the snapshot of the global the client last pulled and
-  mixed into the current global on arrival.
+* ``run_async``, the event loop: one client cycle per completion event,
+  trained from the snapshot of the global the client last pulled and mixed
+  into the current global on arrival (SCAFFOLD's control folded after each
+  event).
 * ``add_client`` / ``remove_client``: §VI.C elastic membership.
 
 Every sync engine runs the one host protocol of :meth:`FLRun.run_sync`
@@ -73,9 +74,11 @@ MAX_BUCKET = 128
 def _make_local_train(adapter: FamilyAdapter, opt):
     """E masked local SGD steps (a Python loop over the leading
     ``local_steps`` axis of ``batches``); the optimizer state restarts each
-    cycle.  Returns (new params, mean loss as a device scalar)."""
+    cycle.  ``corr`` (SCAFFOLD: ``c_global - c_i``) is added to every
+    step's gradient before the optimizer sees it.  Returns (new params,
+    mean loss as a device scalar)."""
 
-    def local_train(params, batches, masks):
+    def local_train(params, batches, masks, corr=None):
         opt_state = opt.init(params)
         losses = []
         for i in range(next(iter(batches.values())).shape[0]):
@@ -87,6 +90,8 @@ def _make_local_train(adapter: FamilyAdapter, opt):
             grads = unflatten(dict(zip(
                 (k for k, _ in paths),
                 torch.autograd.grad(loss, [v for _, v in paths]))))
+            if corr is not None:
+                grads = tree_map(torch.add, grads, corr)
             updates, opt_state = opt.update(grads, opt_state, params, 0)
             params = apply_updates(params, updates)
             losses.append(loss.detach())
@@ -105,12 +110,13 @@ def _make_batched_local_train(adapter: FamilyAdapter, opt):
     stacked trees.  ``params`` and ``masks`` either carry a leading client
     axis or are shared by the cohort (``stacked_params`` /
     ``stacked_masks`` False: the global params of a round's first step, a
-    capable cohort's full masks); ``batches`` leaves are (C, E, ...).
-    Returns (stacked params, (C,) mean losses as device values)."""
+    capable cohort's full masks); ``batches`` leaves are (C, E, ...);
+    ``corr`` (SCAFFOLD) holds one gradient correction a client, (C, ...)
+    leaves.  Returns (stacked params, (C,) mean losses as device values)."""
     step = torch.func.grad_and_value(adapter.loss_fn)
 
     def local_train(params, batches, masks, stacked_params: bool,
-                    stacked_masks: bool):
+                    stacked_masks: bool, corr=None):
         opt_state = opt.init(params)
         m_dim = 0 if stacked_masks else None
         losses = []
@@ -119,6 +125,8 @@ def _make_batched_local_train(adapter: FamilyAdapter, opt):
             grads, loss = torch.func.vmap(
                 step, in_dims=(0 if stacked_params else None, 0, m_dim))(
                     params, batch, masks)
+            if corr is not None:
+                grads = tree_map(torch.add, grads, corr)
             updates, opt_state = opt.update(grads, opt_state, params, 0)
             params = apply_updates(params, updates)
             stacked_params = True
@@ -224,6 +232,13 @@ class FLRun:
         self._scheme.init_run(self)
 
     # -- accounting ------------------------------------------------------
+    def uplink_bytes(self) -> float:
+        """Simulated client->server bytes: every update moves the dense f32
+        params, and a scheme's side channel (SCAFFOLD's control deltas)
+        moves ``extra_dense_uplink`` more such trees an update."""
+        return float(self.uplink_updates + self.uplink_extra_updates) \
+            * self._n_params * 4.0
+
     def downlink_bytes(self) -> float:
         """Simulated server->client bytes: every participant pulls the dense
         f32 global."""
@@ -237,6 +252,10 @@ class FLRun:
     @property
     def uplink_updates(self) -> int:
         return self.rec.count("uplink_updates")
+
+    @property
+    def uplink_extra_updates(self) -> int:
+        return self.rec.count("uplink_extra_updates")
 
     @property
     def events_processed(self) -> int:
@@ -278,7 +297,21 @@ class FLRun:
             client.helios_state = ST.begin_cycle(client.helios_state, hcfg)
         masks = self._client_masks(client)
         batches = self._sample_batches(client)
-        new_params, loss = self._local_train(base_params, batches, masks)
+        if sch.uses_control:
+            ci = self._ctrl_store.row(client.cid)
+            corr = tree_map(torch.sub, self._c_global, ci)
+            new_params, loss = self._local_train(base_params, batches, masks,
+                                                 corr)
+            # option-II control update from the raw trained params:
+            # dc = (x - y) / (K * lr) - c_global
+            inv = 1.0 / (self.local_steps * self.lr)
+            dc = tree_map(lambda b, y, cg: (b.float() - y.float()) * inv - cg,
+                          base_params, new_params, self._c_global)
+            self._ctrl_store.set_row(
+                client.cid, tree_map(lambda c, d: c.float() + d, ci, dc))
+            self._dc_buf.append(dc)
+        else:
+            new_params, loss = self._local_train(base_params, batches, masks)
         if soft:
             if sch.use_delta_scores:
                 scores = self.adapter.cycle_scores(new_params, base_params)
@@ -289,6 +322,17 @@ class FLRun:
         # a device scalar: converted behind the eval gate (_record_round)
         ratio = MK.selected_fraction(masks)
         return new_params, masks, ratio, loss
+
+    def _apply_control(self) -> None:
+        """Fold the buffered control deltas into ``c_global`` one after
+        another, each over the population's size: after the cohort in a
+        sync round (every client corrected by the round-start control),
+        after each event in ``run_async``."""
+        n = float(len(self.clients))
+        for dc in self._dc_buf:
+            self._c_global = tree_map(lambda c, d: c + d / n,
+                                      self._c_global, dc)
+        self._dc_buf = []
 
     def _aggregate(self, results) -> None:
         """results: list of (params, masks, ratio, loss)."""
@@ -350,9 +394,25 @@ class FLRun:
     def _train_cohort(self, cohort: List[int], cclients: List[Client]):
         """Train the drawn cohort against the current global params
         (consuming ``self.rng`` in cohort order) and aggregate; returns
-        per-client (losses, ratios) in cohort order."""
-        results = [self._client_cycle(c, self.global_params)
-                   for c in cclients]
+        per-client (losses, ratios) in cohort order.  Under the delayed
+        scheme a straggler trains from the stale base instead, and its
+        update is virtualized onto the current global with the discount,
+        so it rides the normal aggregation."""
+        sch = self._scheme
+        results = []
+        for c in cclients:
+            stale = sch.uses_stale_base and c.is_straggler
+            base = self._stale_base if stale else self.global_params
+            r = self._client_cycle(c, base)
+            if stale:
+                disc = self._stale_disc
+                p = tree_map(lambda g, y, b: (g.float() + disc * (
+                    y.float() - b.float())).to(g.dtype),
+                    self.global_params, r[0], base)
+                r = (p,) + r[1:]
+            results.append(r)
+        if sch.uses_control:
+            self._apply_control()
         self._aggregate(results)
         return [r[3] for r in results], [r[2] for r in results]
 
@@ -409,6 +469,8 @@ class FLRun:
             self._scheme.round_start(self)
             losses, ratios = self._train_cohort(cohort, cclients)
             self.rec.inc("uplink_updates", len(cohort))
+            self.rec.inc("uplink_extra_updates",
+                         len(cohort) * self._scheme.extra_dense_uplink)
             self._adapt_volumes(cohort, cclients, times, pace)
             self._scheme.round_end(self)
             clock += self._scheme.round_duration(times, cclients)
@@ -432,8 +494,9 @@ class FLRun:
     def run_async(self, capable_cycles: int, mix_weight: float = 0.5,
                   staleness_a: float = 0.5, eval_every: int = 1,
                   snapshot_cap: int = 64) -> List[dict]:
-        """asyn / afo: one client cycle per completion event, until the
-        capable clients completed ``capable_cycles`` cycles.
+        """One client cycle per completion event, until the capable
+        clients completed ``capable_cycles`` cycles (asyn / afo, and every
+        other scheme's event semantics).
 
         A client trains from the global it pulled at its last completion
         (``snapshots[staleness_anchor]``, kept by reference: every update
@@ -468,8 +531,12 @@ class FLRun:
             stale = agg_counter - c.staleness_anchor
             new_params, _, _, loss = self._client_cycle(c, base)
             self.rec.inc("uplink_updates")
+            self.rec.inc("uplink_extra_updates",
+                         self._scheme.extra_dense_uplink)
             w = self._scheme.async_weight(mix_weight, stale, staleness_a)
             self.global_params = AG.mix(self.global_params, new_params, w)
+            if self._scheme.uses_control:
+                self._apply_control()          # per event: async semantics
             agg_counter += 1
             snapshots[agg_counter] = self.global_params
             c.staleness_anchor = agg_counter
@@ -710,7 +777,13 @@ class BatchedFLRun(AsyncFLRun):
     client (each client's draws are a host-named stream); the Eq. 10 /
     masked-mean aggregation runs over the stacked rows in the original
     client order.  Batch draws replay the sequential engine's client order,
-    so a fixed seed gives its trajectory up to rounding.
+    so a fixed seed gives its trajectory up to rounding.  The scheme's
+    extra round inputs and outputs (SCAFFOLD's control rows, the delayed
+    scheme's stale base) pass through :meth:`_round_extras` and
+    :meth:`_apply_round_outs`, as in the reference; like the reference's
+    batched program, SCAFFOLD folds ``c += sum(dc) / N`` and a delayed
+    capable row is ``g + 1 * (y - g)``, where ``FLRun`` folds dc by dc and
+    keeps ``y``.
 
     Under full participation the stacked straggler state persists between
     rounds (``sync_client_states`` writes it back into each client's
@@ -742,11 +815,18 @@ class BatchedFLRun(AsyncFLRun):
             ST.stack_states([self.clients[i].helios_state
                              for i in self._s_idx])
 
-    def _round(self, sstate, s_batch, c_batch, unperm):
-        """Both cohorts' cycles and the aggregation.  Returns (the new
-        stacked straggler state, losses, ratios), rows in client order."""
+    def _round(self, sstate, s_batch, c_batch, unperm, extras=()):
+        """Both cohorts' cycles and the aggregation.  ``extras`` are the
+        scheme's inputs in :meth:`_round_extras`' order.  Returns (the new
+        stacked straggler state, losses, ratios, the scheme's outputs for
+        :meth:`_apply_round_outs`), rows in client order."""
         sch, g = self._scheme, self.global_params
         hcfg = sch.effective_hcfg(self.hcfg)
+        extras = list(extras)
+        if sch.uses_control:
+            c_global, c_rows = extras.pop(0), extras.pop(0)
+        if sch.uses_stale_base:
+            stale_base, flags, discs = extras
         parts_p, parts_r, parts_l, parts_m = [], [], [], []
         if sstate is not None:
             n_s = len(sstate["rng"])
@@ -766,8 +846,26 @@ class BatchedFLRun(AsyncFLRun):
             parts_m.append(masks)
         if c_batch is not None:
             n_c = next(iter(c_batch.values())).shape[0]
-            p, loss = self._train_batched(g, c_batch, self._ones, False,
-                                          False)
+            if sch.uses_control:
+                p, loss = self._train_batched(
+                    g, c_batch, self._ones, False, False,
+                    tree_map(torch.sub, c_global, c_rows))
+            elif sch.uses_stale_base:
+                # each row trains from its own base (the stale global for a
+                # straggler), then is virtualized onto the current global:
+                # a capable row is g + 1 * (y - g), as in the reference
+                def rows(v, x):
+                    return v.view((n_c,) + (1,) * x.dim())
+
+                base = tree_map(lambda sb, gg: torch.where(
+                    rows(flags, gg) > 0, sb, gg), stale_base, g)
+                p, loss = self._train_batched(base, c_batch, self._ones,
+                                              True, False)
+                p = tree_map(lambda gg, y, b: (gg.float() + rows(discs, gg) * (
+                    y.float() - b.float())).to(gg.dtype), g, p, base)
+            else:
+                p, loss = self._train_batched(g, c_batch, self._ones, False,
+                                              False)
             parts_p.append(p)
             parts_r.append(torch.ones(n_c, device=self.device))
             parts_l.append(loss)
@@ -779,12 +877,49 @@ class BatchedFLRun(AsyncFLRun):
                             *parts)
 
         stacked, ratios, losses = cat(parts_p), cat(parts_r), cat(parts_l)
+        outs = ()
+        if sch.uses_control:
+            # option-II control update from the raw trained rows
+            inv = 1.0 / (self.local_steps * self.lr)
+            dc = tree_map(lambda gg, t, cg: (gg.float() - t.float()) * inv
+                          - cg, g, stacked, c_global)
+            outs = (tree_map(torch.add, c_rows, dc),
+                    tree_map(lambda d: d.sum(dim=0), dc))
         mode = sch.agg_mode(self.hcfg)
         pmasks = self.adapter.expand_masks_batch(cat(parts_m), g) \
             if mode == "masked_mean" else None
         self.global_params = AG.aggregate_stacked(mode, g, stacked, ratios,
                                                   pmasks)
-        return sstate, losses, ratios
+        return sstate, losses, ratios, outs
+
+    def _round_extras(self, row_clients: Sequence[Client]) -> tuple:
+        """The scheme's round inputs: SCAFFOLD's control and the clients'
+        control rows; the delayed scheme's stale base, straggler flags and
+        discounts.  The schemes that take extras have no soft cohort, so
+        the rows follow ``row_clients``."""
+        sch, dev = self._scheme, self.device
+        extras = ()
+        if sch.uses_control:
+            extras += (self._c_global, self._ctrl_store.gather(
+                [c.cid for c in row_clients]))
+        if sch.uses_stale_base:
+            flags = torch.tensor([1.0 if c.is_straggler else 0.0
+                                  for c in row_clients], device=dev)
+            discs = torch.tensor([self._stale_disc if c.is_straggler else 1.0
+                                  for c in row_clients], dtype=torch.float32,
+                                 device=dev)
+            extras += (self._stale_base, flags, discs)
+        return extras
+
+    def _apply_round_outs(self, row_clients: Sequence[Client], outs) -> None:
+        """SCAFFOLD: write the new control rows back by cid and fold
+        ``c_global += sum(dc) / N`` over the population's N."""
+        if self._scheme.uses_control:
+            new_rows, dc_sum = outs
+            self._ctrl_store.scatter([c.cid for c in row_clients], new_rows)
+            n = float(len(self.clients))
+            self._c_global = tree_map(lambda c, d: c + d / n,
+                                      self._c_global, dc_sum)
 
     def _train_cohort(self, cohort: List[int], cclients: List[Client]):
         """Both cohorts of the drawn clients, batches drawn in cohort order
@@ -803,8 +938,10 @@ class BatchedFLRun(AsyncFLRun):
             return {k: torch.stack([per[j][k] for j in pos])
                     for k in per[0]} if pos else None
 
-        sstate, losses, ratios = self._round(sstate, stack(s_pos),
-                                             stack(c_pos), unperm)
+        sstate, losses, ratios, outs = self._round(
+            sstate, stack(s_pos), stack(c_pos), unperm,
+            self._round_extras(cclients))
+        self._apply_round_outs(cclients, outs)
         if self.participation:
             for j, st in zip(s_pos, ST.unstack_states(sstate, len(s_pos))
                              if s_pos else ()):

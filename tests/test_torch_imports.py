@@ -58,6 +58,12 @@ def test_port_imports_with_jax_blocked():
         "from repro_torch.configs import GRANITE_MOE_1B_A400M\n"
         "from repro_torch.models import build, moe\n"
         "assert build(GRANITE_MOE_1B_A400M).mask_schema\n"
+        "from repro_torch.federated import (ScaffoldScheme, FluidScheme, "
+        "DelayedScheme)\n"
+        "from repro_torch.core import theory\n"
+        "from repro_torch.optim.compression import HostErrorStore\n"
+        "import repro_torch.drivers.scheme_gauntlet\n"
+        "import repro_torch.drivers.heterogeneous_fl\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m, v in "
         "sys.modules.items() if v is not None)\n"
         "print('ok')\n")

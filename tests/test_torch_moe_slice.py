@@ -18,9 +18,11 @@ token streams of 32 over a 64-token alphabet, split by topic over a 2
 capable + 2 Table-I straggler fleet, ``HeliosConfig(mask_block=16)``, 2
 local steps of batch 4, lr 0.05, two rounds of helios, syn, st_only and
 random under ``alpha_weighted``, helios under ``masked_mean``, and helios
-on the variant.  Both sides start from the JAX run's initial params; the
-port draws its Eq. 2 numbers through the JAX key-path backend.  The JAX
-side runs ``kernels="reference"``, the port ``kernels="cuda"``.
+on the variant; this file runs helios and the variant, and
+tests/test_torch_moe_slice_baselines.py the other four.  Both sides start
+from the JAX run's initial params; the port draws its Eq. 2 numbers
+through the JAX key-path backend.  The JAX side runs
+``kernels="reference"``, the port ``kernels="cuda"``.
 Expected: identical cycle/time/volumes/ratios history, cross-entropy and
 loss within 1e-5, identical straggler masks, params within atol 1e-5.
 """
@@ -82,6 +84,9 @@ CASES = {
     "helios-dense1_shared1": ("dense1_shared1", "helios", "alpha_weighted"),
 }
 RUN_KW = dict(local_steps=2, batch_size=4, lr=0.05, seed=0, eval_batch=48)
+#: the cases this file runs; test_torch_moe_slice_baselines.py runs the
+#: rest, so two workers share the JAX runs
+LOCAL_CASES = ("helios", "helios-dense1_shared1")
 
 
 def _np(t):
@@ -276,8 +281,7 @@ def _run(case, setting):
     return jrun, trun
 
 
-@pytest.fixture(scope="module")
-def runs(setting):
+def lazy_runs(setting):
     """case -> (JAX run, port run), each made on first use."""
     cache = {}
 
@@ -288,9 +292,12 @@ def runs(setting):
     return get
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_history_and_params_match_jax(runs, case):
-    jrun, trun = runs(case)
+@pytest.fixture(scope="module")
+def runs(setting):
+    return lazy_runs(setting)
+
+
+def check_history_and_params(jrun, trun):
     assert len(trun.history) == len(jrun.history) == 2
     for j, t in zip(jrun.history, trun.history):
         for k in ("scheme", "cycle", "time", "volumes", "ratios",
@@ -306,9 +313,7 @@ def test_history_and_params_match_jax(runs, case):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_straggler_masks_identical(runs, case):
-    jrun, trun = runs(case)
+def check_straggler_masks(jrun, trun):
     for jc, tc in zip(jrun.clients, trun.clients):
         assert jc.is_straggler == tc.is_straggler and jc.volume == tc.volume
         for k, m in jc.helios_state["masks"].items():
@@ -317,6 +322,16 @@ def test_straggler_masks_identical(runs, case):
             np.testing.assert_array_equal(
                 tc.helios_state["skip_counts"][k].numpy(),
                 np.asarray(jc.helios_state["skip_counts"][k]), err_msg=k)
+
+
+@pytest.mark.parametrize("case", LOCAL_CASES)
+def test_history_and_params_match_jax(runs, case):
+    check_history_and_params(*runs(case))
+
+
+@pytest.mark.parametrize("case", LOCAL_CASES)
+def test_straggler_masks_identical(runs, case):
+    check_straggler_masks(*runs(case))
 
 
 def test_helios_stragglers_train_sub_models(runs):

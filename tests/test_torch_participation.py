@@ -182,13 +182,13 @@ def test_elastic_join_leave_matches_jax(white_box):
 
 def test_make_scheme_accepts_the_ported_names():
     assert tuple(SCHEMES) == ("helios", "syn", "st_only", "random", "asyn",
-                              "afo")
+                              "afo", "scaffold", "fluid", "delayed")
     for name in SCHEMES:
         s = make_scheme(name)
         assert s.name == name
         assert s.async_native == (name in ("asyn", "afo"))
-        assert s.staleness_discount == (name == "afo")
+        assert s.staleness_discount == (name in ("afo", "delayed"))
         assert s.async_weight(0.5, 3, 0.5) == \
-            (0.25 if name == "afo" else 0.5)
-    with pytest.raises(ValueError, match="afo"):
-        make_scheme("scaffold")
+            (0.25 if name in ("afo", "delayed") else 0.5)
+    with pytest.raises(ValueError, match="delayed"):
+        make_scheme("fedprox")

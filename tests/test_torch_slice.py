@@ -131,7 +131,7 @@ def test_pallas_alias_and_unknown_kernels(setting):
     with pytest.raises(ValueError):
         FLRun(cfg, h, "syn", [], train, test, kernels="triton", **kw)
     with pytest.raises(ValueError):
-        FLRun(cfg, h, "scaffold", [], train, test, **kw)
+        FLRun(cfg, h, "fedprox", [], train, test, **kw)
 
 
 def test_entry_points_refuse_without_gpu(setting, monkeypatch):
