@@ -83,6 +83,20 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    loss finite; one SCAFFOLD round under the profiler (the masked pair at
    P = 1); then the client-axis kernels' device time, ``torch.bmm`` at
    P = 1 and the bound;
+4j. the uplink codec and the lossy snapshot ring on the same setting: the
+   codec on the card against the codec on the CPU, bit for bit, at fc0's
+   and conv1's full shapes under a real Eq. 2 draw, single and stacked
+   (C = 4), with telescoping to one ulp; ``FLRun`` / ``BatchedFLRun``
+   ``run_sync(2)`` of helios and ``AsyncFLRun.run_async(8)`` of asyn and
+   afo at one local step under topk / quant / delta with the masked
+   pair's launches equal to the uncompressed run's (per kernel, per
+   entry) and an error row a client that trained; each engine and mode
+   held kernel path against plain path at max(1e-4, twice the plain
+   path's drift from a 2^-23-nudged twin) with history identical, quant's
+   bytes identical and the others' within 1e-3; the warmup round bit-
+   identical to the uncompressed round; topk's uplink >= 10x below
+   none's, the lossy rings below fp32's; round walls of each mode on both
+   paths in turns and the codec's device time a round (profiled);
 3b. hold the flash-attention kernel against its plain version at the LM
    slice's shape (4, 32, 512, 128) causal, at (2, 8, 300, 64) causal and
    ragged and at (2, 4, 256, 16) full, f32 and bf16, on 16-byte copies,
@@ -739,21 +753,24 @@ def time_rounds(st) -> None:
 
 
 def profile_round(run, label: str, drive=None, host_top: int = 0,
-                  groups: tuple = ()) -> dict:
+                  groups: tuple = (), ranges: tuple = ()) -> dict:
     """One round (no evaluation), or what ``drive`` runs (it returns its
     wall in seconds), under the profiler: wall, device busy time, idle
     share and the device time of the heaviest ops (and the ``host_top``
     heaviest by host self time); ``groups`` adds (label, name parts)
-    groups of device ops to the kernels' own.  Returns the wall, the busy
-    time and the masked kernels' device time in ms, and each group's
-    device time under its label."""
+    groups of device ops to the kernels' own; ``ranges`` names
+    ``record_function`` ranges whose kernels' device time is summed.
+    Returns the wall, the busy time and the masked kernels' device time in
+    ms, and each group's and range's device time under its label."""
     from torch.profiler import ProfilerActivity, profile
     drive = drive or (lambda: timed_run(run, 1, eval_every=0)[1])
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall = drive()
+    # a record_function range also shows as a device row spanning its
+    # kernels: only the kernels count as busy time
     rows = [e for e in prof.key_averages()
-            if str(e.device_type).endswith("CUDA")]
+            if str(e.device_type).endswith("CUDA") and e.key not in ranges]
     busy_ms = sum(_device_us(e) for e in rows) / 1e3
     if busy_ms <= 0:
         raise AssertionError(f"profile {label}: no device time traced")
@@ -777,6 +794,14 @@ def profile_round(run, label: str, drive=None, host_top: int = 0,
             f"{e.key[:90]}")
     host = [e for e in prof.key_averages()
             if not str(e.device_type).endswith("CUDA")]
+    for name in ranges:
+        mine = [e for e in host if e.key == name]
+        t = sum(getattr(e, "device_time_total", None)
+                if getattr(e, "device_time_total", None) is not None
+                else e.cuda_time_total for e in mine) / 1e3
+        out[name] = t
+        log(f"  range {name}: device {t:.3f} ms ({t / busy_ms:.4f} of busy)"
+            f" over {sum(e.count for e in mine)} ranges")
     for e in sorted(host, key=lambda e: e.self_cpu_time_total,
                     reverse=True)[:host_top]:
         log(f"  host   {e.self_cpu_time_total / 1e3:9.3f} ms  calls "
@@ -1670,6 +1695,351 @@ def schemes_path(st) -> dict:
                        "table": t_single},
             "client": {"schemes": client, "gauntlet": g_client,
                        "table": t_client}}
+
+
+# ---------------------------------------------------------------------------
+# phase 4j: the uplink codec and the lossy snapshot ring
+# ---------------------------------------------------------------------------
+
+LOSSY = ("topk", "quant", "delta")
+#: the engines phase 4j drives: (label, engine, scheme, drive for the
+#: launch check, drive for the holds, the history keys held identical)
+COMP_CASES = (
+    ("FLRun", None, "helios", lambda r: timed_run(r, 2),
+     lambda r: timed_run(r, 2), ("cycle", "time", "volumes", "ratios")),
+    ("BatchedFLRun", "BatchedFLRun", "helios", lambda r: timed_run(r, 2),
+     lambda r: timed_run(r, 2), ("cycle", "time", "volumes", "ratios")),
+    ("AsyncFLRun asyn", "AsyncFLRun", "asyn", lambda r: timed_async(r, 8),
+     lambda r: timed_async(r, 4), ("cycle", "time", "staleness")),
+    ("AsyncFLRun afo", "AsyncFLRun", "afo", lambda r: timed_async(r, 8),
+     lambda r: timed_async(r, 4), ("cycle", "time", "staleness")))
+#: kernel-name parts of the codec's device work in a profiled round
+CODEC_OPS = (("codec: top-k (select / sort)", ("topk", "Topk", "TopK",
+                                                "radix", "sort", "Sort")),
+             ("codec: round", ("round",)))
+
+
+class CodecTap:
+    """While active, keeps the inputs and the ``sent`` tree of every codec
+    call, each inside a ``codec`` profiler range: every engine reaches the
+    codec through ``compress_update_stacked`` (the single-update form is
+    its one-row case), looked up on the module at each call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.optim import compression as CP
+        self._cp, self._saved = CP, CP.compress_update_stacked
+
+        def tapped(delta, error, mode, frac=0.05, bits=8, masks=None):
+            with torch.profiler.record_function("codec"):
+                out = self._saved(delta, error, mode, frac, bits, masks)
+            self.calls.append({"delta": delta, "error": error,
+                               "masks": masks, "sent": out[0]})
+            return out
+
+        CP.compress_update_stacked = tapped
+        return self
+
+    def __exit__(self, *exc):
+        self._cp.compress_update_stacked = self._saved
+
+
+def _sent_differences(a: dict, b: dict, mode: str, bits: int = 8) -> int:
+    """Coordinates of two ``sent`` trees that were decided differently: in
+    or out of the sent set (topk, delta), or a code step apart (quant,
+    delta; a step is the leaf's max |value| / (2^(bits-1) - 1))."""
+    n = 0
+    for k, x in a.items():
+        y = b[k]
+        n += int(((x != 0) ^ (y != 0)).sum())
+        if mode != "topk":
+            step = x.abs().amax() / (2 ** (bits - 1) - 1)
+            n += int(((x - y).abs() > 0.5 * step).sum())
+    return n
+
+
+def _ulp_ok(lhs: torch.Tensor, rhs: torch.Tensor) -> bool:
+    """|lhs - rhs| within one f32 ulp of |rhs|."""
+    big = torch.full_like(rhs, math.inf)
+    ulp = torch.nextafter(rhs.abs(), big) - rhs.abs()
+    return bool(((lhs - rhs).abs() <= ulp).all())
+
+
+def check_codec(st) -> None:
+    """The codec on the card against the codec on the CPU, bit for bit
+    (``sent``, the new error rows, the coordinate counts), single and
+    stacked (C = 4), each mode: seeded deltas and error rows at fc0's
+    (4096, 1024) and conv1's full shapes, a sixteenth of the fc0 delta's
+    values tied at 3 sigma (k is a twentieth: every tie is kept, so a full
+    row sends more than k); masks from a real Eq. 2 draw of
+    both stragglers (ones for the two capable rows).  Telescoping
+    ``sent + new_error == delta + error`` within one ulp on unmasked
+    coordinates."""
+    import numpy as np
+    from repro_torch.core import soft_train as ST
+    from repro_torch.optim import compression as CP
+    run = make_run("helios", "reference", st, local_steps=1)
+    hcfg = run._scheme.effective_hcfg(run.hcfg)
+    keys = ("fc0_w", "conv1_w")
+    shapes = {k: tuple(run.global_params[k].shape) for k in keys}
+    masks = []
+    for c in run.clients:
+        if c.is_straggler:
+            um = ST.begin_cycle(c.helios_state, hcfg)["masks"]
+            pm = run.adapter.expand_masks(um, run.global_params)
+            masks.append({k: pm[k].cpu() for k in keys})
+        else:
+            masks.append({k: torch.ones(shapes[k]) for k in keys})
+    live = [float(m["fc0_w"].mean()) for m in masks]
+    rng = np.random.default_rng(41)
+    # more ties than fc0's k, so its threshold is a tie; the error rows are
+    # zero there, so that delta + error keeps them tied
+    n_fc0 = math.prod(shapes["fc0_w"])
+    tied = torch.from_numpy(rng.permutation(n_fc0)[:n_fc0 // 16])
+
+    def tree(scale, tie_value):
+        out = {k: torch.from_numpy((scale * rng.standard_normal(s))
+                                   .astype(np.float32)) for k, s in
+               shapes.items()}
+        out["fc0_w"].view(-1)[tied] = tie_value
+        return out
+
+    rows = [(tree(1e-3, 3e-3), tree(1e-4, 0.0)) for _ in range(4)]
+    mism = []
+
+    def compare(what, cpu, dev):
+        for j, name in ((0, "sent"), (1, "new_error")):
+            for k in keys:
+                bad = (cpu[j][k] != dev[j][k].cpu()).view(-1)
+                if bad.any():
+                    at = bad.nonzero()[:3, 0]
+                    mism.append(
+                        f"{what} {name} {k}: {int(bad.sum())} at "
+                        f"{at.tolist()}, CPU {cpu[j][k].view(-1)[at].tolist()}"
+                        f" card {dev[j][k].cpu().view(-1)[at].tolist()}")
+        if not torch.equal(cpu[2], dev[2].cpu()):
+            mism.append(f"{what} coords {cpu[2].tolist()} vs "
+                        f"{dev[2].tolist()}")
+
+    def cuda(t):
+        return {k: v.cuda() for k, v in t.items()}
+
+    for mode in LOSSY:
+        for i, (d, e) in enumerate(rows):
+            m = masks[i]
+            dev = CP.compress_update(cuda(d), cuda(e), mode, 0.05, 8,
+                                     cuda(m))
+            compare(f"{mode} row {i}", CP.compress_update(d, e, mode, 0.05,
+                                                          8, m), dev)
+            for k in keys:
+                keep = m[k].cuda() > 0
+                if not _ulp_ok((dev[0][k] + dev[1][k])[keep],
+                               (d[k] + e[k]).cuda()[keep]):
+                    raise AssertionError(f"codec {mode} {k}: sent + "
+                                         f"new_error != delta + error")
+        stack = [{k: torch.stack([r[j][k] for r in rows]) for k in keys}
+                 for j in (0, 1)]
+        sm = {k: torch.stack([m[k] for m in masks]) for k in keys}
+        dev = CP.compress_update_stacked(cuda(stack[0]), cuda(stack[1]),
+                                         mode, 0.05, 8, cuda(sm))
+        compare(f"{mode} stacked", CP.compress_update_stacked(
+            stack[0], stack[1], mode, 0.05, 8, sm), dev)
+        sent_fc0 = [int((dev[0]["fc0_w"][i] != 0).sum()) for i in range(4)]
+        log(f"codec {mode} card vs CPU (fc0 {shapes['fc0_w']}, conv1 "
+            f"{shapes['conv1_w']}; rows' live fc0 share {live}): coords "
+            f"{[float(x) for x in dev[2]]}, fc0 sent per row {sent_fc0} "
+            f"(leaf_k {CP.leaf_k(n_fc0, 0.05)})")
+    log(f"codec card vs CPU: {len(mism)} mismatching tensors over 3 modes "
+        f"x (4 single + 1 stacked) calls {mism}")
+    if mism:
+        raise AssertionError(f"codec: the card and the CPU disagree: "
+                             f"{mism}")
+
+
+def _hold_comp(what: str, a, b, keys, tol: float) -> float:
+    """Run ``a`` against run ``b`` under compression: the history's
+    ``keys`` identical, params within ``tol``, quant's bytes identical and
+    the others' within 1e-3 relative.  Returns the params' max |diff|."""
+    for x, y in zip(a.history, b.history):
+        for key in keys:
+            if x[key] != y[key]:
+                raise AssertionError(f"{what}: history {key} differs: "
+                                     f"{x[key]} vs {y[key]}")
+    if len(a.history) != len(b.history):
+        raise AssertionError(f"{what}: history lengths differ")
+    diff = _param_diff(a, b)
+    if not diff <= tol:
+        raise AssertionError(f"{what}: params differ by {diff} (tol {tol})")
+    ba, bb = a.uplink_bytes(), b.uplink_bytes()
+    if (ba != bb) if a.compression == "quant" else \
+            abs(ba - bb) > 1e-3 * bb:
+        raise AssertionError(f"{what}: uplink bytes {ba} vs {bb}")
+    return diff
+
+
+def compression_path(st) -> dict:
+    """Phase 4j on the AlexNet 2 + 2 setting: the codec on the card against
+    the CPU; ``FLRun`` / ``BatchedFLRun`` ``run_sync(2)`` of helios and
+    ``AsyncFLRun.run_async(8)`` of asyn and afo at one local step under
+    each lossy mode with the masked pair's launches equal to the
+    uncompressed run's; the kernel path held to the plain path per engine
+    and mode; the warmup round; bytes, ring bytes, error rows and memory;
+    round walls of each mode in turns and the codec's device time.
+    Returns the launches of the lossy runs, single-client and
+    client-axis."""
+    from repro_torch.core import aggregation as AG
+    from repro_torch.federated import AsyncFLRun, BatchedFLRun
+    from repro_torch.kernels import masked_matmul as K
+    from repro_torch.optim import compression as CP
+    t0 = time.perf_counter()
+    check_codec(st)
+    engines = {None: None, "BatchedFLRun": BatchedFLRun,
+               "AsyncFLRun": AsyncFLRun}
+    # 1. launches: each lossy mode's masked launches are the uncompressed
+    # run's, per kernel and per entry (the codec launches no hand kernel)
+    single, client, per_round, peak = {}, {}, {}, {}
+    for label, eng, scheme, drive, _, _ in COMP_CASES:
+        got = {}
+        for mode in ("none",) + LOSSY:
+            K.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            run = make_run(scheme, "cuda", st, local_steps=1,
+                           engine=engines[eng], compression=mode)
+            _, wall = drive(run)
+            got[mode] = _counts()
+            _finite(run, f"{label} {mode}")
+            if label == "FLRun":
+                per_round[mode] = run.uplink_bytes() / 2
+                peak[mode] = torch.cuda.max_memory_allocated() / 2 ** 30
+            if mode != "none":
+                single = _add(single, got[mode][0])
+                client = _add(client, got[mode][1])
+                touched = sum(c.staleness_anchor > 0 for c in run.clients) \
+                    if scheme in ("asyn", "afo") else len(run.clients)
+                if run._err_store.touched() != touched:
+                    raise AssertionError(
+                        f"{label} {mode}: {run._err_store.touched()} error "
+                        f"rows for {touched} clients that trained")
+            log(f"{label} {mode}: {wall:.3f} s, {run.uplink_updates} "
+                f"updates, uplink {run.uplink_bytes():.0f} B, "
+                f"masked launches single {json.dumps(got[mode][0])} "
+                f"client-axis {json.dumps(got[mode][1])}")
+        for mode in LOSSY:
+            if got[mode] != got["none"] or \
+                    not any(v for d in got[mode] for v in d.values()):
+                raise AssertionError(f"{label} {mode}: masked launches "
+                                     f"{got[mode]}, uncompressed "
+                                     f"{got['none']}")
+    # 2. bytes a round, the rings, peak memory
+    log("FLRun uplink bytes a round (2 + 2, helios): " + json.dumps(
+        per_round) + "; peak device memory GiB " + json.dumps(
+            {k: round(v, 3) for k, v in peak.items()}))
+    ratio = per_round["none"] / per_round["topk"]
+    if not ratio >= 10.0:
+        raise AssertionError(f"topk uplink only {ratio:.2f}x below none")
+    g = make_run("afo", "reference", st).global_params
+    rings = {mode: AG.SnapshotRing(g, 16, 4, mode=mode, fresh_window=2)
+             .nbytes() for mode in ("fp32", "quant", "delta")}
+    log(f"topk uplink {ratio:.2f}x below none; snapshot ring bytes at "
+        f"snapshot_cap 16, comp_fresh 2, 4 anchors: {json.dumps(rings)}")
+    if not max(rings["quant"], rings["delta"]) < rings["fp32"]:
+        raise AssertionError(f"lossy ring not smaller than fp32: {rings}")
+    # 3. holds at one local step, kernel path against plain path, beside
+    # the plain path's drift from its 2^-23-nudged twin under the mode
+    for label, eng, scheme, _, drive, keys in COMP_CASES:
+        for mode in LOSSY:
+            runs, sent = {}, {}
+            for name, kernels, nudge in (("cuda", "cuda", 0.0),
+                                         ("plain", "reference", 0.0),
+                                         ("nudged", "reference", 2.0 ** -23)):
+                runs[name] = make_run(scheme, kernels, st, local_steps=1,
+                                      nudge=nudge, engine=engines[eng],
+                                      compression=mode)
+                with CodecTap() as tap:
+                    drive(runs[name])
+                sent[name] = tap.calls[-1]["sent"]
+            drift = _param_diff(runs["plain"], runs["nudged"])
+            tol = max(1e-4, 2 * drift)
+            diff = _hold_comp(f"{label} {mode}", runs["cuda"], runs["plain"],
+                              keys, tol)
+            log(f"{label} {mode} hold kernel vs plain {diff:.3e} (tol "
+                f"{tol:.1e}, {'2x twin drift' if tol > 1e-4 else '1e-4'}); "
+                f"plain vs nudged plain {drift:.3e}; decisions apart at the "
+                f"last update: kernel vs plain "
+                f"{_sent_differences(sent['cuda'], sent['plain'], mode)}, "
+                f"plain vs nudged "
+                f"{_sent_differences(sent['plain'], sent['nudged'], mode)}; "
+                f"bytes {runs['cuda'].uplink_bytes():.0f} / "
+                f"{runs['plain'].uplink_bytes():.0f}")
+    # 4. a warmup round is the uncompressed round, bit for bit
+    for eng in (None, "BatchedFLRun"):
+        warm, dense = (make_run("helios", "cuda", st, local_steps=1,
+                                engine=engines[eng], **kw)
+                       for kw in (dict(compression="topk", comp_warmup=1),
+                                  dict()))
+        for run in (warm, dense):
+            timed_run(run, 1)
+        same = all(torch.equal(warm.global_params[k], v)
+                   for k, v in dense.global_params.items())
+        log(f"{eng or 'FLRun'} comp_warmup=1: round 0 bit-identical to "
+            f"the uncompressed round: {same}; dense updates "
+            f"{warm.uplink_dense_updates}")
+        if not same or warm.uplink_dense_updates != 4:
+            raise AssertionError(f"{eng or 'FLRun'}: the warmup round is "
+                                 f"not the uncompressed round")
+    # 5. where the time goes: round walls (5 local steps, evaluation off)
+    # of each mode on both paths in turns, the codec's device time on a
+    # round's own inputs, and a profiled round a mode
+    walls = {}
+    for mode in ("none",) + LOSSY:
+        walls[mode] = {"cuda": [], "reference": []}
+        for kernels in ("cuda", "reference", "reference", "cuda"):
+            run = make_run("helios", kernels, st, compression=mode)
+            timed_run(run, 1, eval_every=0)
+            _, wall = timed_run(run, 2, eval_every=0)
+            walls[mode][kernels].append(wall / 2)
+    log("round wall s helios FLRun 2 + 2 by mode (2 rounds after a warm-up "
+        "round): " + json.dumps(walls))
+    for mode in LOSSY:
+        run = make_run("helios", "cuda", st, compression=mode)
+        timed_run(run, 1, eval_every=0)
+        with CodecTap() as tap:
+            prof = profile_round(run, f"helios round under {mode}",
+                                 groups=CODEC_OPS, ranges=("codec",))
+        sets = [(c["delta"], c["error"], c["masks"]) for c in tap.calls]
+        avail = [{k: (d[k] + e[k]) * m[k] for k in d} for d, e, m in sets]
+        parts = {"codec: topk": lambda v: CP._rows_topk(v, 0.05),
+                 "codec: quantize passes":
+                     lambda v: CP._rows_roundtrip_quant(v, 8),
+                 "codec: fp16 round trip": CP._roundtrip_f16}
+        need = {"topk": ("codec: topk", "codec: fp16 round trip"),
+                "quant": ("codec: quantize passes",),
+                "delta": ("codec: topk", "codec: quantize passes")}[mode]
+
+        def replay():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for part in need:
+                with torch.profiler.record_function(part):
+                    for a in avail:
+                        for v in a.values():
+                            parts[part](v)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        replay()
+        split = profile_round(run, f"codec parts under {mode} (the round's "
+                              f"{len(avail)} updates replayed)", replay,
+                              ranges=need)
+        log(f"codec {mode}: device time a round {prof['codec']:.3f} ms "
+            f"(the profiled round's 'codec' ranges, {len(sets)} updates), "
+            f"{prof['codec'] / prof['busy_ms']:.4f} of its busy time, "
+            f"{prof['codec'] / prof['wall_ms']:.4f} of its wall; parts "
+            + ", ".join(f"{p[7:]} {split[p]:.3f} ms" for p in need))
+    log(f"phase 4j took {time.perf_counter() - t0:.1f} s")
+    return {"single": single, "client": client}
 
 
 # ---------------------------------------------------------------------------
@@ -2830,10 +3200,12 @@ def main() -> int:
     time_batched_rounds(st)
     population = population_path(st)
     scheme_launches = schemes_path(st)
+    comp_launches = compression_path(st)
     client_kernels = time_client_kernels(
         client_worst, {"batched": batched_launches,
                        "population": population["launches"],
-                       **scheme_launches["client"]})
+                       **scheme_launches["client"],
+                       "compression": comp_launches["client"]})
     del st
     _free()
     resnet_path()
@@ -2847,6 +3219,7 @@ def main() -> int:
                                    "async": async_launches,
                                    "cohort": cohort_launches,
                                    **scheme_launches["single"],
+                                   "compression": comp_launches["single"],
                                    "lm": lm_launches}, lm_times)
     kernels += client_kernels
     kernels.append(time_flash(flash_worst, lm_launches["flash_attention"],

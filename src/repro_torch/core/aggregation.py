@@ -12,7 +12,11 @@
   axis, one reduction per leaf; :func:`mix_bucket` / :func:`mix_bucket_ring`
   fold a bucket of async events in event order, the latter snapshotting
   every intermediate global into a :class:`SnapshotRing` row, whose slots
-  :class:`RingAllocator` manages on the host.
+  :class:`RingAllocator` manages on the host;
+* the lossy ring (the uplink codec's memory leg): :func:`lossy_roundtrip`,
+  :func:`ring_gather_lossy`, :func:`mix_bucket_ring_lossy` and
+  :class:`SnapshotRing`'s ``quant`` / ``delta`` modes keep anchors as int
+  codes with one f32 scale a leaf, and the newest ones in full precision.
 
 Parameters are dicts of tensors, flat (CNN) or nested (LM); sums run in
 float32 in client order, leaf by leaf.
@@ -24,7 +28,9 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.models.module import tree_leaves, tree_map
+from repro_torch.models.module import (tree_leaves, tree_map, tree_paths,
+                                       unflatten)
+from repro_torch.optim import compression as CP
 
 Params = Dict[str, Any]
 
@@ -213,6 +219,92 @@ def mix_bucket_ring(global_params: Params, ring_params: Params,
     return g, ring_params
 
 
+def _lossy_delta(leaf: torch.Tensor, ref_leaf: Optional[torch.Tensor]):
+    """A snapshot leaf in encode space: its f32 value (``quant``) or its
+    difference from the fixed reference (``delta``)."""
+    x = leaf.float()
+    return x if ref_leaf is None else x - ref_leaf.float()
+
+
+def _ref_leaves(tree, ref) -> list:
+    return [None] * len(tree_leaves(tree)) if ref is None else \
+        tree_leaves(ref)
+
+
+def _from_leaves(tree, leaves: list) -> Params:
+    return unflatten(dict(zip((k for k, _ in tree_paths(tree)), leaves)))
+
+
+def lossy_roundtrip(params: Params, ref: Optional[Params], bits: int
+                    ) -> Params:
+    """What a lossy ring row decodes to for a stale anchor: quantize(theta
+    [- ref]) -> dequantize [+ ref], leaf by leaf, cast to the leaf's dtype.
+    The bucket engine pays this at write time (:func:`mix_bucket_ring_lossy`),
+    the sequential loop at read time; both give the same bits."""
+    out = []
+    for p, r in zip(tree_leaves(params), _ref_leaves(params, ref)):
+        dec = CP.dequantize(*CP.quantize(_lossy_delta(p, r), bits))
+        if r is not None:
+            dec = dec + r.float()
+        out.append(dec.to(p.dtype))
+    return _from_leaves(params, out)
+
+
+def ring_gather_lossy(ring_q: Params, ring_scales: Params, fresh_buf: Params,
+                      ref: Optional[Params], base_slots: Sequence[int],
+                      fresh_idx: Sequence[int], is_fresh: Sequence[float]
+                      ) -> Params:
+    """Each event's base params out of a lossy ring: an anchor inside the
+    freshness window (``is_fresh`` 1, the ``stale < window`` rule) reads
+    its full-precision row ``fresh_idx`` (agg % window); a staler one
+    dequantizes its int row ``base_slots`` (+ ref for ``delta``).  Leaves
+    come back stacked (B,) + shape."""
+    dev = _device(fresh_buf)
+    slots = torch.as_tensor(base_slots, device=dev)
+    fidx = torch.as_tensor(fresh_idx, device=dev)
+    sel = torch.as_tensor(is_fresh, dtype=torch.float32, device=dev)
+    out = []
+    for qL, scL, fL, rL in zip(tree_leaves(ring_q), tree_leaves(ring_scales),
+                               tree_leaves(fresh_buf),
+                               _ref_leaves(ring_q, ref)):
+        bshape = (-1,) + (1,) * (qL.dim() - 1)
+        deq = qL.index_select(0, slots).float() * \
+            scL.index_select(0, slots).reshape(bshape)
+        if rL is not None:
+            deq = deq + rL.float()
+        fp = fL.index_select(0, fidx).float()
+        out.append(torch.where(sel.reshape(bshape) > 0, fp, deq)
+                   .to(fL.dtype))
+    return _from_leaves(fresh_buf, out)
+
+
+def mix_bucket_ring_lossy(global_params: Params, ring_q: Params,
+                          ring_scales: Params, fresh_buf: Params,
+                          ref: Optional[Params], write_slots: Sequence[int],
+                          fresh_slots: Sequence[int], stacked_params: Params,
+                          weights: torch.Tensor, bits: int):
+    """:func:`mix_bucket_ring` for a lossy ring: each event's post-mix
+    global is written twice, quantized (int codes and one f32 scale a
+    leaf) into ring row ``write_slots[i]`` and in full precision into
+    fresh row ``fresh_slots[i]`` (agg % window).  A padding event (weight
+    0) writes the scratch rows.  The rows are updated in place; the bucket
+    read its anchors before.  Returns (global, ring_q, ring_scales,
+    fresh_buf)."""
+    g = global_params
+    q_leaves, s_leaves = tree_leaves(ring_q), tree_leaves(ring_scales)
+    r_leaves = _ref_leaves(ring_q, ref)
+    for i, (s, fs) in enumerate(zip(write_slots, fresh_slots)):
+        g = tree_map(lambda gg, pp: _mix_leaf(gg, pp[i], weights[i]), g,
+                     stacked_params)
+        for qL, scL, gL, rL in zip(q_leaves, s_leaves, tree_leaves(g),
+                                   r_leaves):
+            codes, scale = CP.quantize(_lossy_delta(gL, rL), bits)
+            qL[s].copy_(codes)
+            scL[s] = scale
+        tree_map(lambda f, gg: f[fs].copy_(gg), fresh_buf, g)
+    return g, ring_q, ring_scales, fresh_buf
+
+
 # ---------------------------------------------------------------------------
 # snapshot ring buffer (bucketed async engine)
 # ---------------------------------------------------------------------------
@@ -289,36 +381,71 @@ class RingAllocator:
 
 class SnapshotRing:
     """Device-side stacked snapshot store of the bucketed async engine and
-    of the delayed scheme's stale globals (:meth:`put`), in full precision (the reference's ``mode="fp32"``; its lossy modes are
-    not ported).
+    of the delayed scheme's stale globals (:meth:`put`).
 
-    ``params`` is one tree whose leaves carry a leading (slots,) axis: row
-    r holds the global params as of some aggregation step.  Capacity is
-    ``max(cap, anchors + 1)`` data slots + 1 scratch, so the store is
-    bounded as the sequential loop's snapshot dict is (cap + live anchors).
+    ``mode`` is the anchors' precision (the uplink codec's memory leg):
+    ``fp32`` keeps ``params``, one tree whose leaves carry a leading
+    (slots,) axis, row r the global as of some aggregation step;
+    ``quant`` / ``delta`` keep ``q``, int-``bits`` codes of each row, and
+    ``scales``, one f32 scale a (slot, leaf) (``delta`` encodes against
+    ``ref``, the params the ring was built from), plus ``fresh_buf``, the
+    last ``fresh_window`` globals in full precision (row agg % window) and
+    a scratch row, so only anchors staler than the window pay the
+    quantization.  Capacity is ``max(cap, anchors + 1)`` data slots + 1
+    scratch, so the store is bounded as the sequential loop's snapshot
+    dict is (cap + live anchors).
     """
 
-    def __init__(self, params: Params, cap: int, n_anchors: int):
+    def __init__(self, params: Params, cap: int, n_anchors: int,
+                 mode: str = "fp32", bits: int = 8, fresh_window: int = 8):
         self.alloc = RingAllocator(max(cap, n_anchors + 1) + 1)
+        self.mode, self.bits = mode, bits
+        self.fresh_window = max(1, fresh_window)
         slots = self.alloc.slots
 
-        def rows(x):
-            r = torch.zeros((slots,) + tuple(x.shape), dtype=x.dtype,
+        def rows(x, n):
+            r = torch.zeros((n,) + tuple(x.shape), dtype=x.dtype,
                             device=x.device)
             r[0] = x
             return r
 
-        self.params = tree_map(rows, params)
+        if mode == "fp32":
+            self.params = tree_map(lambda x: rows(x, slots), params)
+        elif mode in ("quant", "delta"):
+            self.ref = tree_map(lambda x: x.detach().float().clone(),
+                                params) if mode == "delta" else None
+            qs, scs = [], []
+            for p, r in zip(tree_leaves(params), _ref_leaves(params,
+                                                             self.ref)):
+                codes, scale = CP.quantize(_lossy_delta(p, r), bits)
+                qs.append(rows(codes, slots))
+                sc = torch.ones(slots, dtype=torch.float32, device=p.device)
+                sc[0] = scale
+                scs.append(sc)
+            self.q = _from_leaves(params, qs)
+            self.scales = _from_leaves(params, scs)
+            self.fresh_buf = tree_map(lambda x: rows(x, self.fresh_window + 1),
+                                      params)
+        else:
+            raise ValueError(f"SnapshotRing: bad mode {mode!r}")
         self.alloc.seed(0, slot=0)
 
     @property
     def scratch(self) -> int:
         return self.alloc.scratch
 
-    def read(self, agg: int) -> Params:
-        """Snapshot ``agg``: views of its rows."""
+    def read(self, agg: int, stale: Optional[int] = None) -> Params:
+        """Snapshot ``agg``.  ``fp32``: views of its rows.  Lossy modes:
+        a reader ``stale`` < ``fresh_window`` aggregation steps behind gets
+        views of the full-precision row, any other the decoded int row."""
         s = self.alloc.slot_of(agg)
-        return tree_map(lambda x: x[s], self.params)
+        if self.mode == "fp32":
+            return tree_map(lambda x: x[s], self.params)
+        if stale is not None and stale < self.fresh_window:
+            return tree_map(lambda x: x[agg % self.fresh_window],
+                            self.fresh_buf)
+        return tree_map(lambda x: x[0], ring_gather_lossy(
+            self.q, self.scales, self.fresh_buf, self.ref, [s], [0], [0.0]))
 
     def put(self, agg: int, params: Params) -> int:
         """Store ``params`` as snapshot ``agg`` from the host loop (the
@@ -326,9 +453,22 @@ class SnapshotRing:
         :func:`mix_bucket_ring`).  Allocation recycles the oldest unanchored
         slot, which may be the slot a caller just :meth:`read`: the write is
         out of place (as the reference's ``.at[s].set``), so views taken by
-        an earlier ``read`` keep their values."""
+        an earlier ``read`` keep their values.  ``fp32`` only, as in the
+        reference: the sync ring is small and read exactly."""
+        if self.mode != "fp32":
+            raise ValueError(
+                f"SnapshotRing.put requires mode='fp32', got {self.mode!r}")
         s = self.alloc.alloc(agg)
         idx = torch.tensor([s], device=_device(self.params))
         self.params = tree_map(lambda r, x: r.index_copy(0, idx, x[None]),
                                self.params, params)
         return s
+
+    def nbytes(self) -> int:
+        """Device bytes of the anchor store: the rows, and in the lossy
+        modes the codes, scales, fresh rows and reference."""
+        trees = (self.params,) if self.mode == "fp32" else \
+            (self.q, self.scales, self.fresh_buf) + \
+            ((self.ref,) if self.ref is not None else ())
+        return sum(x.numel() * x.element_size() for t in trees
+                   for x in tree_leaves(t))

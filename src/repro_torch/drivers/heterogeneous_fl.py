@@ -10,7 +10,9 @@ Population-scale mode: ``--clients N`` (e.g. 64-256) simulates a large
 half-straggler fleet (syn and helios only, rounds timed after a warm-up
 round); pair it with ``--engine batched`` to run each local step of a
 cohort as one vmapped step instead of a per-client loop.  With
-``--engine batched`` the async schemes run the bucketed event engine.
+``--engine batched`` the async schemes run the bucketed event engine.  The
+engines run the CUDA kernels on the GPU and their plain versions on the CPU
+unless ``--kernels`` says otherwise.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ TABLE_SCHEMES = ("syn", "asyn", "random", "afo", "helios")
 
 def heterogeneous_fl(cfg: ModelConfig, devices: int = 4, rounds: int = 10,
                      engine: str = "sequential", clients: int = 0,
-                     device: DeviceLike = None, kernels: str = "reference",
+                     device: DeviceLike = None, kernels: Optional[str] = None,
                      init_params: Optional[Mapping] = None, lr: float = 0.1
                      ) -> Dict[str, List[dict]]:
     """Print the comparison on ``cfg`` and return {scheme: history}
@@ -125,8 +127,10 @@ def main() -> None:
                          "(half stragglers); 0 = paper's 4/6-device setting")
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
-    ap.add_argument("--kernels", default="reference",
-                    choices=["reference", "cuda"])
+    ap.add_argument("--kernels", default=None,
+                    choices=["reference", "cuda"],
+                    help="the soft-training substrate (default: cuda on a "
+                         "GPU, reference on the CPU)")
     args = ap.parse_args()
     heterogeneous_fl(reduced(CNNS[args.model]), args.devices, args.rounds,
                      args.engine, args.clients, args.device, args.kernels)

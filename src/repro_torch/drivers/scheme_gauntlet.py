@@ -11,8 +11,10 @@ and for the soft-training schemes the Prop. 2 report at the straggler
 volumes the run settled on.  Async-native schemes run ``AsyncFLRun``'s
 bucket engine for ``rounds`` capable cycles, every other scheme
 ``BatchedFLRun.run_sync(rounds)``.  The JSON has the reference's keys.
+The engines run the CUDA kernels on the GPU and their plain versions on
+the CPU unless ``--kernels`` says otherwise.
 
-    python -m repro_torch.drivers.scheme_gauntlet --kernels cuda
+    python -m repro_torch.drivers.scheme_gauntlet
     python -m repro_torch.drivers.scheme_gauntlet --device cpu --quick
 """
 from __future__ import annotations
@@ -85,7 +87,7 @@ def _prop2_report(straggler) -> dict:
 def scheme_gauntlet(cfg: Optional[ModelConfig] = None, rounds: int = 12,
                     nc: int = 4, ns: int = 4, seed: int = 0,
                     out_path: Optional[str] = DEFAULT_OUT,
-                    device: DeviceLike = None, kernels: str = "reference",
+                    device: DeviceLike = None, kernels: Optional[str] = None,
                     init_params: Optional[Mapping] = None
                     ) -> Tuple[dict, Dict[str, object], Dict[str, float]]:
     """Run every scheme on ``cfg`` (unreduced LeNet by default) and write the
@@ -161,8 +163,10 @@ def main() -> None:
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
-    ap.add_argument("--kernels", default="reference",
-                    choices=["reference", "cuda"])
+    ap.add_argument("--kernels", default=None,
+                    choices=["reference", "cuda"],
+                    help="the soft-training substrate (default: cuda on a "
+                         "GPU, reference on the CPU)")
     args = ap.parse_args()
     scheme_gauntlet(rounds=3 if args.quick else 12, out_path=args.out,
                     device=args.device, kernels=args.kernels)

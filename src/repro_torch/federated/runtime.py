@@ -15,6 +15,10 @@ real tensors on the run's device.
   into the current global on arrival (SCAFFOLD's control folded after each
   event).
 * ``add_client`` / ``remove_client``: §VI.C elastic membership.
+* ``compression``: each client -> server update through a lossy codec
+  with per-client error feedback (``optim.compression``) at the
+  aggregation boundary of every engine; under quant / delta the async
+  anchors are kept as int codes (``SnapshotRing``'s lossy modes).
 
 Every sync engine runs the one host protocol of :meth:`FLRun.run_sync`
 and overrides its hooks (``_train_cohort``, ``_write_volumes``,
@@ -59,12 +63,12 @@ from repro_torch.federated.events import (ArrivalProcess, DropoutProcess,
                                           SimClock)
 from repro_torch.federated.heterogeneity import cycle_time
 from repro_torch.federated.schemes import Scheme, make_scheme
-from repro_torch.kernels.ops import canonical_impl
+from repro_torch.kernels.ops import CUDA, REFERENCE, canonical_impl
 from repro_torch.models import init_params as _init_params
-from repro_torch.models.module import (tree_leaves, tree_map, tree_paths,
-                                       unflatten)
+from repro_torch.models.module import tree_map, tree_paths, unflatten
 from repro_torch.obs.recorder import Recorder
 from repro_torch.optim import apply_updates, make_optimizer
+from repro_torch.optim import compression as CP
 
 #: most events a bucket of the async engine trains at once: bounds the
 #: memory of the vmapped local training
@@ -187,8 +191,9 @@ class FLRun:
     dropout: Optional[DropoutProcess] = None
     #: soft-training substrate: "reference" (plain masked ops) or "cuda"
     #: (block-sparse masked-matmul kernels, flash attention for the LM,
-    #: the SSD intra-chunk kernel for the hybrid; "pallas" is an alias)
-    kernels: str = "reference"
+    #: the SSD intra-chunk kernel for the hybrid; "pallas" is an alias).
+    #: None: "cuda" on a CUDA device, "reference" on the CPU
+    kernels: Optional[str] = None
     #: kernel skip granularity; 0 follows HeliosConfig.mask_block (128 when
     #: that is 0 too), so selection blocks and kernel blocks agree
     mask_block: int = 0
@@ -197,11 +202,27 @@ class FLRun:
     #: initial global params (tensors or numpy arrays keyed like the spec);
     #: None draws them from ``seed``
     init_params: Optional[Mapping] = None
+    #: uplink compression: "none", or a lossy codec applied to each
+    #: client -> server delta at the aggregation boundary, with per-client
+    #: error feedback and the Eq. 2 masks gating the encoder: "topk" (the
+    #: top ``comp_frac`` coordinates a leaf, fp16 values), "quant" (dense
+    #: int-``comp_bits``), "delta" (top-k with int-``comp_bits`` values).
+    #: quant / delta also keep the async snapshot anchors in that form
+    compression: str = "none"
+    comp_frac: float = 0.05
+    comp_bits: int = 8
+    #: async anchors staler than this many aggregation steps decode from
+    #: the lossy ring; fresher ones read full precision
+    comp_fresh: int = 8
+    #: the first ``comp_warmup`` sync rounds upload dense (the uncompressed
+    #: round exactly); the async loops always compress
+    comp_warmup: int = 0
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self._scheme: Scheme = make_scheme(self.scheme)
-        self.kernels = canonical_impl(self.kernels)
+        self.kernels = canonical_impl(self.kernels or (
+            CUDA if self.device.type == "cuda" else REFERENCE))
         self.mask_block = self.mask_block or self.hcfg.mask_block or 128
         self.adapter = make_adapter(self.cfg, self.kernels, self.mask_block,
                                     self.device)
@@ -221,9 +242,22 @@ class FLRun:
         self.cohort_log: List[List[int]] = []
         self.history: List[dict] = []
         self.round = 0
-        self._n_params = sum(p.numel()
-                             for p in tree_leaves(self.global_params))
+        if self.compression not in CP.MODES:
+            raise ValueError(f"compression must be one of {CP.MODES}, "
+                             f"got {self.compression!r}")
+        if self.comp_fresh < 1:
+            raise ValueError("comp_fresh must be >= 1 (the ring keeps at "
+                             "least the newest anchor full-precision)")
+        if self.comp_warmup < 0:
+            raise ValueError("comp_warmup must be >= 0")
+        self._n_params, self._n_leaves = CP.param_census(self.global_params)
         self.rec = Recorder()
+        # the encoded coordinates, summed on the device in f32 (update by
+        # update in FLRun, bucket by bucket and round by round in the
+        # stacked engines, as in the reference); read by uplink_bytes()
+        self.rec.accum("uplink_coords", torch.zeros((), device=self.device))
+        if self.compression != "none":
+            self._err_store = CP.HostErrorStore(self.global_params)
         for c in self.clients:
             c.helios_state = ST.init_state(self.adapter.schema,
                                            volume=c.volume, seed=c.cid,
@@ -231,13 +265,46 @@ class FLRun:
         self._local_train = _make_local_train(self.adapter, self.opt)
         self._scheme.init_run(self)
 
+    # -- the uplink codec --------------------------------------------------
+    def _compress_one(self, base, new_params, err, pmasks):
+        """One update through the codec: (base + decoded sent, the new error
+        row, the encoded-coordinate count as a device scalar)."""
+        delta = tree_map(lambda n, b: n.float() - b.float(), new_params, base)
+        sent, new_err, coords = CP.compress_update(
+            delta, err, self.compression, self.comp_frac, self.comp_bits,
+            pmasks)
+        hat = tree_map(lambda b, x: (b.float() + x).to(b.dtype), base, sent)
+        return hat, new_err, coords
+
+    def _ring_mode(self) -> str:
+        """The async anchors' precision: quant / delta keep them in the
+        matching lossy form; none / topk in fp32."""
+        return self.compression \
+            if self.compression in ("quant", "delta") else "fp32"
+
+    def _comp_active(self) -> bool:
+        """Whether this sync round's uplink goes through the codec (not in
+        the first ``comp_warmup`` rounds)."""
+        return self.compression != "none" and self.round >= self.comp_warmup
+
     # -- accounting ------------------------------------------------------
     def uplink_bytes(self) -> float:
-        """Simulated client->server bytes: every update moves the dense f32
-        params, and a scheme's side channel (SCAFFOLD's control deltas)
-        moves ``extra_dense_uplink`` more such trees an update."""
-        return float(self.uplink_updates + self.uplink_extra_updates) \
-            * self._n_params * 4.0
+        """Simulated client->server bytes.  ``none`` moves the dense f32
+        params an update; the lossy modes bill their wire format
+        (:func:`optim.compression.uplink_bytes`, one wait for the coordinate
+        count), warmup rounds dense; a scheme's side channel (SCAFFOLD's
+        control deltas) moves ``extra_dense_uplink`` dense trees an
+        update."""
+        dense = float(self.uplink_extra_updates) * self._n_params * 4.0
+        if self.compression == "none":
+            return dense + float(self.uplink_updates) * self._n_params * 4.0
+        coords = self.rec.accum_value("uplink_coords")
+        comp_updates = self.uplink_updates - self.uplink_dense_updates
+        return (dense
+                + float(self.uplink_dense_updates) * self._n_params * 4.0
+                + CP.uplink_bytes(self.compression, coords, self._n_params,
+                                  self._n_leaves * comp_updates,
+                                  self.comp_bits))
 
     def downlink_bytes(self) -> float:
         """Simulated server->client bytes: every participant pulls the dense
@@ -256,6 +323,14 @@ class FLRun:
     @property
     def uplink_extra_updates(self) -> int:
         return self.rec.count("uplink_extra_updates")
+
+    @property
+    def uplink_dense_updates(self) -> int:
+        return self.rec.count("uplink_dense_updates")
+
+    @property
+    def uplink_coords(self) -> torch.Tensor:
+        return self.rec.accum_raw("uplink_coords")
 
     @property
     def events_processed(self) -> int:
@@ -413,8 +488,25 @@ class FLRun:
             results.append(r)
         if sch.uses_control:
             self._apply_control()
+        if self._comp_active():
+            results = self._compress_results(cclients, results)
         self._aggregate(results)
         return [r[3] for r in results], [r[2] for r in results]
+
+    def _compress_results(self, cclients: List[Client], results):
+        """The lossy uplink: each client's new params become base + its
+        decoded update, the un-sent residual goes into its error row; its
+        Eq. 2 masks gate the encoder."""
+        base = self.global_params
+        out = []
+        for c, r in zip(cclients, results):
+            pmasks = self.adapter.expand_masks(r[1], base)
+            hat, new_err, coords = self._compress_one(
+                base, r[0], self._err_store.row(c.cid), pmasks)
+            self._err_store.set_row(c.cid, new_err)
+            self.rec.accum("uplink_coords", coords)
+            out.append((hat,) + r[1:])
+        return out
 
     def _adapt_volumes(self, cohort: List[int], cclients: List[Client],
                        times: List[float], pace: float) -> None:
@@ -469,6 +561,8 @@ class FLRun:
             self._scheme.round_start(self)
             losses, ratios = self._train_cohort(cohort, cclients)
             self.rec.inc("uplink_updates", len(cohort))
+            if self.compression != "none" and not self._comp_active():
+                self.rec.inc("uplink_dense_updates", len(cohort))  # warmup
             self.rec.inc("uplink_extra_updates",
                          len(cohort) * self._scheme.extra_dense_uplink)
             self._adapt_volumes(cohort, cclients, times, pace)
@@ -508,6 +602,12 @@ class FLRun:
         clock = SimClock()
         self._reset_async_processes()
         snapshots = {0: self.global_params}
+        # the lossy ring's semantics: snapshots stay full precision here,
+        # and an anchor read past the freshness window decodes through the
+        # quantize -> dequantize the bucket engine's rows pay when written
+        ring_mode = self._ring_mode()
+        ring_ref = tree_map(lambda x: x.float().clone(), self.global_params) \
+            if ring_mode == "delta" else None
         self.rec.set("snapshot_peak", 1)
         self.rec.set("snapshot_anchor_misses", 0)
         self.rec.set("events_processed", 0)
@@ -529,7 +629,15 @@ class FLRun:
             # anchors are never evicted (below): this lookup cannot miss
             base = snapshots[c.staleness_anchor]
             stale = agg_counter - c.staleness_anchor
-            new_params, _, _, loss = self._client_cycle(c, base)
+            if ring_mode != "fp32" and stale >= self.comp_fresh:
+                base = AG.lossy_roundtrip(base, ring_ref, self.comp_bits)
+            new_params, masks, _, loss = self._client_cycle(c, base)
+            if self.compression != "none":
+                new_params, new_err, coords = self._compress_one(
+                    base, new_params, self._err_store.row(c.cid),
+                    self.adapter.expand_masks(masks, base))
+                self._err_store.set_row(c.cid, new_err)
+                self.rec.accum("uplink_coords", coords)
             self.rec.inc("uplink_updates")
             self.rec.inc("uplink_extra_updates",
                          self._scheme.extra_dense_uplink)
@@ -648,13 +756,30 @@ class AsyncFLRun(FLRun):
 
     def _bucket(self, ring: AG.SnapshotRing, base_slots: List[int],
                 write_slots: List[int], batches: dict, stales: List[int],
-                b: int, mix_weight: float, staleness_a: float):
+                b: int, mix_weight: float, staleness_a: float, err=None,
+                fresh_read=(), fresh_write=(), is_fresh=()):
         """One bucket of ``len(base_slots)`` events (the first ``b`` real):
         train every event from its anchor row, then mix in event order.
-        Returns the (B,) losses as device values."""
+        Returns the (B,) losses as device values and, under compression,
+        (the new error rows, the real events' encoded coordinates as a
+        device scalar), else None.
+
+        Under compression ``err`` holds the events' error rows: the anchors
+        decode from the ring (a lossy ring's int row or, inside the
+        freshness window, its full-precision row ``fresh_read``), each
+        event's delta goes through the codec without masks (asyn / afo
+        train full models) and the decoded updates are mixed; a lossy ring
+        re-encodes each post-mix global into its slot and into fresh row
+        ``fresh_write``."""
         dev = self.device
-        idx = torch.as_tensor(base_slots, device=dev)
-        base = tree_map(lambda r: r.index_select(0, idx), ring.params)
+        lossy = ring.mode != "fp32"
+        if lossy:
+            base = AG.ring_gather_lossy(ring.q, ring.scales, ring.fresh_buf,
+                                        ring.ref, base_slots, fresh_read,
+                                        is_fresh)
+        else:
+            idx = torch.as_tensor(base_slots, device=dev)
+            base = tree_map(lambda r: r.index_select(0, idx), ring.params)
         trained, losses = self._train_batched(base, batches, self._ones,
                                               True, False)
         w = torch.full((len(base_slots),), float(mix_weight), device=dev)
@@ -662,11 +787,27 @@ class AsyncFLRun(FLRun):
             w = w * AG.staleness_weights(
                 torch.as_tensor(stales, dtype=torch.float32, device=dev),
                 staleness_a)
-        w = w * torch.as_tensor([1.0] * b + [0.0] * (len(base_slots) - b),
+        valid = torch.as_tensor([1.0] * b + [0.0] * (len(base_slots) - b),
                                 device=dev)
-        self.global_params, ring.params = AG.mix_bucket_ring(
-            self.global_params, ring.params, write_slots, trained, w)
-        return losses
+        w = w * valid
+        if err is None:
+            self.global_params, ring.params = AG.mix_bucket_ring(
+                self.global_params, ring.params, write_slots, trained, w)
+            return losses, None
+        delta = tree_map(lambda t, x: t.float() - x.float(), trained, base)
+        sent, new_err, coords = CP.compress_update_stacked(
+            delta, err, self.compression, self.comp_frac, self.comp_bits)
+        hat = tree_map(lambda x, y: (x.float() + y).to(x.dtype), base, sent)
+        if lossy:
+            self.global_params, ring.q, ring.scales, ring.fresh_buf = \
+                AG.mix_bucket_ring_lossy(
+                    self.global_params, ring.q, ring.scales, ring.fresh_buf,
+                    ring.ref, write_slots, fresh_write, hat, w,
+                    self.comp_bits)
+        else:
+            self.global_params, ring.params = AG.mix_bucket_ring(
+                self.global_params, ring.params, write_slots, hat, w)
+        return losses, (new_err, (coords * valid).sum())
 
     def run_async(self, capable_cycles: int, mix_weight: float = 0.5,
                   staleness_a: float = 0.5, eval_every: int = 1,
@@ -678,7 +819,10 @@ class AsyncFLRun(FLRun):
         self._reset_async_processes()
         by_id = {c.cid: c for c in self.clients}
         ring = AG.SnapshotRing(self.global_params, snapshot_cap,
-                               len(self.clients))
+                               len(self.clients), mode=self._ring_mode(),
+                               bits=self.comp_bits,
+                               fresh_window=self.comp_fresh)
+        F = ring.fresh_window
         for c in self.clients:
             c.staleness_anchor = 0
             ring.alloc.retain(0)
@@ -718,20 +862,41 @@ class AsyncFLRun(FLRun):
                     self.local_steps, self.batch_size, pad_to=bpad)
                 agg0 = self.agg_counter
                 base_slots, write_slots, stales = [], [], []
+                fresh_read, fresh_write, is_fresh = [], [], []
                 for i, ev in enumerate(exec_evs):
                     c = by_id[ev.cid]
                     base_slots.append(ring.alloc.slot_of(c.staleness_anchor))
                     stales.append(agg0 + i - c.staleness_anchor)
+                    # freshness per event, the sequential loop's
+                    # stale < window rule; an anchor inside the window
+                    # still has its full-precision row (one write an agg)
+                    fresh_read.append(c.staleness_anchor % F)
+                    is_fresh.append(1.0 if stales[-1] < F else 0.0)
                     ring.alloc.release(c.staleness_anchor)
                     write_slots.append(ring.alloc.alloc(agg0 + i + 1))
                     ring.alloc.retain(agg0 + i + 1)
                     c.staleness_anchor = agg0 + i + 1
+                    fresh_write.append((agg0 + i + 1) % F)
                 self.rec.set("agg_counter", agg0 + b)
                 pad = bpad - b
-                losses = self._bucket(
-                    ring, base_slots + [0] * pad,
-                    write_slots + [ring.scratch] * pad, batches,
-                    stales + [0] * pad, b, mix_weight, staleness_a)
+                args = (ring, base_slots + [0] * pad,
+                        write_slots + [ring.scratch] * pad, batches,
+                        stales + [0] * pad, b, mix_weight, staleness_a)
+                if self.compression == "none":
+                    losses, _ = self._bucket(*args)
+                else:
+                    # padding rows read cids[0]'s error row and write the
+                    # scratch rows at weight 0; only the real rows go back
+                    cids = [ev.cid for ev in exec_evs]
+                    losses, (new_err, coords) = self._bucket(
+                        *args, err=self._err_store.gather(
+                            cids + [cids[0]] * pad),
+                        fresh_read=fresh_read + [0] * pad,
+                        fresh_write=fresh_write + [F] * pad,
+                        is_fresh=is_fresh + [1.0] * pad)
+                    self.rec.accum("uplink_coords", coords)
+                    self._err_store.scatter(
+                        cids, tree_map(lambda x: x[:b], new_err))
                 self.rec.inc("uplink_updates", b)
                 self.rec.inc("events_processed", b)
                 self.rec.inc("downlink_updates", b)   # per-event ring pulls
@@ -815,11 +980,14 @@ class BatchedFLRun(AsyncFLRun):
             ST.stack_states([self.clients[i].helios_state
                              for i in self._s_idx])
 
-    def _round(self, sstate, s_batch, c_batch, unperm, extras=()):
+    def _round(self, sstate, s_batch, c_batch, unperm, extras=(), err=None):
         """Both cohorts' cycles and the aggregation.  ``extras`` are the
-        scheme's inputs in :meth:`_round_extras`' order.  Returns (the new
-        stacked straggler state, losses, ratios, the scheme's outputs for
-        :meth:`_apply_round_outs`), rows in client order."""
+        scheme's inputs in :meth:`_round_extras`' order; ``err`` the rows'
+        error rows when the round compresses.  Returns (the new stacked
+        straggler state, losses, ratios, the scheme's outputs for
+        :meth:`_apply_round_outs`, and under compression (the new error
+        rows, the round's encoded coordinates) else None), rows in client
+        order."""
         sch, g = self._scheme, self.global_params
         hcfg = sch.effective_hcfg(self.hcfg)
         extras = list(extras)
@@ -887,10 +1055,21 @@ class BatchedFLRun(AsyncFLRun):
                     tree_map(lambda d: d.sum(dim=0), dc))
         mode = sch.agg_mode(self.hcfg)
         pmasks = self.adapter.expand_masks_batch(cat(parts_m), g) \
-            if mode == "masked_mean" else None
-        self.global_params = AG.aggregate_stacked(mode, g, stacked, ratios,
-                                                  pmasks)
-        return sstate, losses, ratios, outs
+            if mode == "masked_mean" or err is not None else None
+        codec = None
+        if err is not None:
+            # every row's delta through the codec under its expanded Eq. 2
+            # masks (a capable row's are ones), the decoded rows aggregated
+            delta = tree_map(lambda t, gg: t.float() - gg.float(), stacked, g)
+            sent, new_err, coords = CP.compress_update_stacked(
+                delta, err, self.compression, self.comp_frac, self.comp_bits,
+                pmasks)
+            stacked = tree_map(lambda gg, x: (gg.float() + x).to(gg.dtype),
+                               g, sent)
+            codec = new_err, coords.sum()
+        self.global_params = AG.aggregate_stacked(
+            mode, g, stacked, ratios, pmasks if mode == "masked_mean" else None)
+        return sstate, losses, ratios, outs, codec
 
     def _round_extras(self, row_clients: Sequence[Client]) -> tuple:
         """The scheme's round inputs: SCAFFOLD's control and the clients'
@@ -938,9 +1117,17 @@ class BatchedFLRun(AsyncFLRun):
             return {k: torch.stack([per[j][k] for j in pos])
                     for k in per[0]} if pos else None
 
-        sstate, losses, ratios, outs = self._round(
+        # error rows follow the rows' order, cclients' (warmup rounds run
+        # the uncompressed round exactly)
+        cids = [c.cid for c in cclients]
+        sstate, losses, ratios, outs, codec = self._round(
             sstate, stack(s_pos), stack(c_pos), unperm,
-            self._round_extras(cclients))
+            self._round_extras(cclients),
+            self._err_store.gather(cids) if self._comp_active() else None)
+        if codec is not None:
+            new_err, coords = codec
+            self.rec.accum("uplink_coords", coords)
+            self._err_store.scatter(cids, new_err)
         self._apply_round_outs(cclients, outs)
         if self.participation:
             for j, st in zip(s_pos, ST.unstack_states(sstate, len(s_pos))

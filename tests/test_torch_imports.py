@@ -62,6 +62,10 @@ def test_port_imports_with_jax_blocked():
         "DelayedScheme)\n"
         "from repro_torch.core import theory\n"
         "from repro_torch.optim.compression import HostErrorStore\n"
+        "from repro_torch.optim.compression import (compress_update, "
+        "compress_update_stacked, quantize)\n"
+        "from repro_torch.core.aggregation import (lossy_roundtrip, "
+        "ring_gather_lossy, mix_bucket_ring_lossy, SnapshotRing)\n"
         "import repro_torch.drivers.scheme_gauntlet\n"
         "import repro_torch.drivers.heterogeneous_fl\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m, v in "
