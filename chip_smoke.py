@@ -135,7 +135,27 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
 5c. time ``ssd_diag`` by device time and its
    plain version at the slice shape beside both bounds, and the recompute
    backward; one helios hybrid round, kernel path against plain path, then
-   under the profiler.
+   under the profiler;
+4k. the serving plane: ``repro_torch.launch.serve.main`` at batch 8,
+   prompt 512, 32 generated tokens, on the CLI's card default
+   ``kernels="cuda"``, on DeepSeek-7B (all 30 layers), Zamba2-1.2B (all
+   38: ``ssd_diag`` once a Mamba2 layer a prefill, never in a decode
+   step) and Granite-3.0-1B-A400M
+   (all 24), counters zeroed before and read after; every logit finite;
+   the last decode step's logits held against one prefill over the same
+   tokens at max(1e-4, twice a 2^-23-nudged twin's drift) (Granite with
+   the capacity-free dense dispatch and its routing flips printed,
+   Zamba2 at 542 tokens, a length its chunked SSD takes), Zamba2's
+   kernel path against its plain path; prefill ms, decode ms a step
+   beside its byte bound, a profiled decode step and the peak memory;
+   then serve while training at Zamba2 width with 2 Mamba2 layers
+   (``FLRun`` helios on the 2 + 2 fleet, 2 rounds of one local step,
+   publishing every round, ``ServeLoop`` behind ``make_ce_eval``, Poisson
+   traffic at 10 Hz): requests, latency and service p50 / p99 and the
+   longest queue wait, swaps, publish / restore
+   times and rates, the run log flushed and rendered with ``report``;
+   ``ssd_diag`` at the serving prefill's shape against its plain
+   version and its bound.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and before that the
@@ -3157,6 +3177,384 @@ def granite_phase(kernels: list) -> None:
     log(f"Granite phase took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 4k: the serving plane
+# ---------------------------------------------------------------------------
+
+#: the standalone generation cell: batch, prompt, generated tokens
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
+SERVE_MODELS = ("deepseek-7b", "zamba2-1.2b", "granite-moe-1b-a400m")
+#: serve while training: Zamba2 width cut to this many Mamba2 layers (the
+#: publish through zlib, ~17 MB/s on a host core, sets the phase's time)
+SWT_LAYERS = 2
+#: the offered rate: a request takes ~35 ms on the card while training
+#: runs, so 10 Hz loads the serving thread to about a third between
+#: restores; requests that arrive during a restore (seconds, on the same
+#: thread) still queue, which the latency percentiles show and the
+#: service percentiles do not
+SWT_RATE_HZ = 10.0
+
+
+def _serve_cli(arch: str, kernels: str) -> dict:
+    """``repro_torch.launch.serve.main`` at the serving cell, with every
+    kernel counter zeroed before and read after."""
+    from repro_torch.launch import serve as SV
+    report = {}
+    _reset_all()
+    SV.main(["--arch", arch, "--batch", str(SERVE_BATCH), "--prompt-len",
+             str(SERVE_PROMPT), "--gen", str(SERVE_GEN), "--kernels",
+             kernels], report=report)
+    report["launches"] = _all_launches()
+    return report
+
+
+def _forced(srv, params, batch, toks, steps: int) -> tuple:
+    """Prefill the prompt, then decode the generated tokens ``toks[:, :steps]``
+    one at a time: (prefill logits, [each step's logits])."""
+    from repro_torch.launch import serve as SV
+    logits, cache = srv.prefill(params, batch)
+    cache = SV.pad_cache(cache, SERVE_PROMPT + SERVE_GEN)
+    out = []
+    for i in range(steps):
+        lg, cache = srv.decode(params, toks[:, i:i + 1], cache)
+        out.append(lg)
+    del cache
+    return logits, out
+
+
+def _full_prefill(srv, params, batch, toks, steps: int) -> torch.Tensor:
+    """Last-position logits of one prefill over the prompt and the first
+    ``steps`` generated tokens."""
+    seq = torch.cat([batch["tokens"], toks[:, :steps]], dim=1)
+    return srv.prefill(params, {"tokens": seq})[0]
+
+
+def _nudge(params, factor: float) -> None:
+    from repro_torch.models.module import tree_leaves
+    with torch.no_grad():
+        for v in tree_leaves(params):
+            v.mul_(factor)
+
+
+def _max_diff(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+class _RouterLog:
+    """Records each call of the port's top-k routing (probabilities and
+    choices) inside ``use()``."""
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def use(self):
+        from repro_torch.models import moe
+        orig = moe.top_k
+
+        def tap(probs, k):
+            w, idx = orig(probs, k)
+            self.calls.append((probs.detach(), idx))
+            return w, idx
+
+        moe.top_k = tap
+        try:
+            yield self
+        finally:
+            moe.top_k = orig
+
+
+def _routing_flips(dec: _RouterLog, full: _RouterLog, layers: int, k: int,
+                   positions: int) -> None:
+    """Hold the routing of prefill + decode steps against one prefill over
+    the same tokens, position by position: flips (the top-k sets differ)
+    at a probability gap above ``FLIP_GAP`` fail."""
+    b = SERVE_BATCH
+    flips, worst_gap, dp = [], 0.0, 0.0
+    for layer in range(layers):
+        own = [dec.calls[layer]] + [dec.calls[layers * (1 + s) + layer]
+                                    for s in range(positions - SERVE_PROMPT)]
+        probs = torch.cat([p.reshape(b, -1, p.shape[-1]) for p, _ in own], 1)
+        idx = torch.cat([i.reshape(b, -1, k) for _, i in own], 1)
+        rp, ri = full.calls[layer]
+        rp = rp.reshape(b, -1, rp.shape[-1])[:, :positions]
+        ri = ri.reshape(b, -1, k)[:, :positions]
+        differs = (torch.sort(idx, -1).values
+                   != torch.sort(ri, -1).values).any(-1)
+        srt = torch.sort(rp, -1, descending=True).values
+        gap = srt[..., k - 1] - srt[..., k]
+        dp = max(dp, _max_diff(probs, rp))
+        for bi, pi in differs.nonzero().tolist():
+            flips.append((layer, bi, pi, float(gap[bi, pi])))
+    log(f"  routing, prefill + decode against one prefill over the same "
+        f"{positions} positions ({layers} layers, top-{k}): max|router prob "
+        f"diff| {dp:.3e}, flips {len(flips)}")
+    for layer, bi, pi, g in flips[:20]:
+        log(f"    flip: layer {layer}, row {bi}, position {pi}, k-th/(k+1)-th"
+            f" gap {g:.3e}")
+    worst_gap = max((f[3] for f in flips), default=0.0)
+    if worst_gap > FLIP_GAP:
+        raise AssertionError(f"serving routing flip at a gap of {worst_gap} "
+                             f"> {FLIP_GAP}")
+
+
+def _serve_readings(srv, params, batch, toks) -> dict:
+    """Prefill ms and decode ms a token by CUDA events after a warm-up,
+    beside the decode step's byte bound: the params and the live cache
+    (attention K / V up to the step's position, the SSM states) read once
+    a token."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.models.module import tree_leaves
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    srv.prefill(params, batch)                        # warm-up
+    ev[0].record()
+    logits, cache = srv.prefill(params, batch)
+    ev[1].record()
+    cache = SV.pad_cache(cache, SERVE_PROMPT + SERVE_GEN)
+    steps = SERVE_GEN - 1
+    ev[2].record()
+    for i in range(steps):
+        _, cache = srv.decode(params, toks[:, i:i + 1], cache)
+    ev[3].record()
+    ev[3].synchronize()
+    prefill_ms = ev[0].elapsed_time(ev[1])
+    decode_ms = ev[2].elapsed_time(ev[3]) / steps
+    p_bytes = sum(v.numel() * v.element_size() for v in tree_leaves(params))
+
+    def cache_bytes(node, pos):
+        if isinstance(node, dict):
+            return sum(cache_bytes(v, pos) if k not in ("k", "v") else
+                       v.element_size() * v.numel() // v.shape[-3]
+                       * (pos + 1) for k, v in node.items() if k != "pos")
+        if isinstance(node, list):
+            return sum(cache_bytes(v, pos) for v in node)
+        return node.numel() * node.element_size()
+
+    live = [cache_bytes(cache, SERVE_PROMPT + i) for i in range(steps)]
+    bound_ms = (p_bytes + sum(live) / steps) / PEAK_BYTES * 1e3
+    # four decode steps under the profiler: device busy time, idle share
+    # and the kernels a step launches
+    from torch.profiler import ProfilerActivity, profile
+    cache["pos"] = SERVE_PROMPT
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(4):
+            _, cache = srv.decode(params, toks[:, i:i + 1], cache)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    busy_ms = sum(_device_us(e) for e in rows) / 1e3
+    del cache, logits
+    return {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+            "decode_bound_ms": bound_ms, "param_gb": p_bytes / 1e9,
+            "live_cache_gb_last": live[-1] / 1e9,
+            "decode_tok_s": SERVE_BATCH / decode_ms * 1e3,
+            "profiled_decode_step_ms": wall_ms / 4,
+            "decode_idle_share": 1 - busy_ms / wall_ms,
+            "decode_kernels_per_step": sum(e.count for e in rows) / 4}
+
+
+def serve_model(arch: str) -> dict:
+    """One model at full width and depth: generation through the CLI, the
+    cache-consistency hold beside a nudged twin, (Zamba2) the kernel path
+    against the plain path and the ``ssd_diag`` counts, the readings."""
+    from repro_torch.launch import serve as SV
+    from repro_torch.models.module import tree_leaves
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    hybrid = arch.startswith("zamba2")
+    moe_model = arch.startswith("granite")
+    rep = _serve_cli(arch, "cuda")
+    cfg, params, batch = rep["cfg"], rep["params"], rep["batch"]
+    toks, srv = rep["tokens"], rep["server"]
+    n_params = sum(v.numel() for v in tree_leaves(params))
+    log(f"serve {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{n_params / 1e9:.4f} B params; CLI prefill {rep['prefill_s']:.3f} s"
+        f", decode {rep['decode_s']:.3f} s for {SERVE_GEN - 1} steps; "
+        f"launches {json.dumps(rep['launches'])}; tokens[0][:8] "
+        f"{toks[0, :8].tolist()}")
+    want = {"masked_matmul": 0, "masked_matmul_dk": 0, "flash_attention": 0,
+            "ssd_diag": cfg.num_layers if hybrid else 0}
+    if rep["launches"] != want:
+        raise AssertionError(f"serve {arch} launches {rep['launches']}, "
+                             f"want {want} (ssd_diag once a Mamba2 layer "
+                             f"in the prefill, never in a decode step)")
+    if not bool(torch.isfinite(rep["prefill_logits"]).all()):
+        raise AssertionError(f"serve {arch}: non-finite prefill logits")
+    out = {"arch": arch, "layers": cfg.num_layers, "params_b": n_params / 1e9,
+           "launches": rep["launches"]}
+    del rep
+    if hybrid:
+        # the counts a prefill and a decode step make apart
+        _reset_all()
+        _, cache = srv.prefill(params, batch)
+        n_pre = _all_launches()["ssd_diag"]
+        _reset_all()
+        srv.decode(params, toks[:, :1],
+                   SV.pad_cache(cache, SERVE_PROMPT + SERVE_GEN))
+        n_dec = _all_launches()["ssd_diag"]
+        del cache
+        log(f"serve {arch}: ssd_diag launches a prefill {n_pre}, a decode "
+            f"step {n_dec}")
+        if (n_pre, n_dec) != (cfg.num_layers, 0):
+            raise AssertionError(f"serve {arch}: ssd_diag launches "
+                                 f"{n_pre} / {n_dec} a prefill / decode "
+                                 f"step, want {cfg.num_layers} / 0")
+    hold = srv
+    if moe_model:
+        # expert capacity counts the call's tokens: only the capacity-free
+        # dense dispatch computes the same function in both forms
+        hold = SV.GenerationServer(cfg, SERVE_BATCH, SERVE_PROMPT,
+                                   gen=SERVE_GEN, kernels="cuda")
+        hold.rt["moe_impl"] = "dense"
+    # ssd_chunked takes lengths its chunk count divides: 542, not 543
+    steps = SERVE_GEN - 2 if hybrid else SERVE_GEN - 1
+    dec_log, full_log = _RouterLog(), _RouterLog()
+    with dec_log.use():
+        _, dec = _forced(hold, params, batch, toks, steps)
+    with full_log.use():
+        full = _full_prefill(hold, params, batch, toks, steps)
+    if not all(bool(torch.isfinite(x).all()) for x in dec + [full]):
+        raise AssertionError(f"serve {arch}: non-finite decode logits")
+    consistency = _max_diff(dec[-1], full)
+    if moe_model:
+        _routing_flips(dec_log, full_log, cfg.num_layers,
+                       cfg.num_experts_per_tok, SERVE_PROMPT + steps)
+    del dec_log, full_log
+    out.update(consistency=consistency, positions=SERVE_PROMPT + steps)
+    if hybrid:
+        plain = SV.GenerationServer(cfg, SERVE_BATCH, SERVE_PROMPT,
+                                    gen=SERVE_GEN, kernels="reference")
+        p_pre, p_dec = _forced(plain, params, batch, toks, steps)
+        k_pre = srv.prefill(params, batch)[0]
+        out["kernel_vs_plain"] = max(
+            _max_diff(k_pre, p_pre),
+            max(_max_diff(a, b) for a, b in zip(dec, p_dec)))
+        out["plain_tokens_equal"] = bool(torch.equal(plain(params, batch),
+                                                     toks))
+        del plain, p_pre, p_dec, k_pre
+    del dec
+    readings = _serve_readings(srv, params, batch, toks)
+    # the twin: the same prefill over prompt + generated tokens with every
+    # weight nudged by 2^-23 (in place; nothing reads the params after)
+    _nudge(params, 1.0 + 2.0 ** -23)
+    drift = _max_diff(_full_prefill(hold, params, batch, toks, steps), full)
+    gate = max(F32_TOL, 2 * drift)
+    out.update(drift=drift, gate=gate, **readings,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               seconds=time.perf_counter() - t0)
+    log(f"serve {arch}: last decode step's logits against one prefill over "
+        f"the same {SERVE_PROMPT + steps} tokens {consistency:.3e}; the "
+        f"prefill's drift under a 2^-23 nudge {drift:.3e}; gate {gate:.3e}"
+        + (f"; kernel path against plain path {out['kernel_vs_plain']:.3e},"
+           f" greedy tokens equal {out['plain_tokens_equal']}"
+           if hybrid else "")
+        + (" (moe_impl dense)" if moe_model else ""))
+    log(f"serve {arch}: prefill {readings['prefill_ms']:.3f} ms for "
+        f"{SERVE_BATCH} x {SERVE_PROMPT}; decode "
+        f"{readings['decode_ms_per_token']:.4f} ms a token step "
+        f"({readings['decode_tok_s']:.1f} tok/s) against a byte bound of "
+        f"{readings['decode_bound_ms']:.4f} ms (params "
+        f"{readings['param_gb']:.3f} GB + live cache, "
+        f"{readings['live_cache_gb_last']:.3f} GB at the last step, at "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s); peak {out['peak_gib']:.2f} GiB; "
+        f"{out['seconds']:.1f} s")
+    log(f"serve {arch}: profiled decode step "
+        f"{readings['profiled_decode_step_ms']:.3f} ms, device idle share "
+        f"{readings['decode_idle_share']:.4f}, "
+        f"{readings['decode_kernels_per_step']:.0f} kernels a step")
+    if consistency > gate:
+        raise AssertionError(f"serve {arch}: decode disagrees with prefill "
+                             f"over the same tokens: {consistency} > {gate}")
+    if hybrid and out["kernel_vs_plain"] > gate:
+        raise AssertionError(f"serve {arch}: kernel path disagrees with the "
+                             f"plain path: {out['kernel_vs_plain']} > {gate}")
+    del params, srv, hold, full
+    return out
+
+
+def serve_while_train_path() -> dict:
+    """Serve while training at Zamba2 width, depth cut to ``SWT_LAYERS``:
+    ``FLRun`` helios on a 2 + 2 fleet, 2 rounds of one local step,
+    publishing every round, behind ``make_ce_eval``; the run log rendered
+    with the port's report."""
+    from repro_torch.configs import ZAMBA2_1_2B
+    from repro_torch.drivers.serve_while_train import serve_while_train
+    from repro_torch.obs import report as OBR
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(ZAMBA2_1_2B, num_layers=SWT_LAYERS)
+    out_dir = str(ROOT / "chiprun_out" / "serve_obs")
+    _reset_all()
+    res = serve_while_train(cfg, clients=4, rounds=2, local_steps=1,
+                            batch_size=4, seq_len=256, rate_hz=SWT_RATE_HZ,
+                            batch=4, prompt_len=128, gen=8, tol=0.05,
+                            min_requests=10, device="cuda", kernels="cuda",
+                            out=out_dir)
+    launches = _all_launches()
+    rec = res.pop("recorder")
+    res.pop("history")
+    res["launches"] = launches
+    res["seconds"] = time.perf_counter() - t0
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("serve while training (Zamba2 width, "
+        f"{SWT_LAYERS} Mamba2 layers): " + json.dumps(
+            {k: (round(v, 4) if isinstance(v, float) else v)
+             for k, v in res.items()}))
+    report = OBR.render(OBR.load_events(out_dir))
+    for ln in report.splitlines()[:60]:
+        log("  | " + ln)
+    swapped = [e for e in rec.events if e["kind"] == "swap"
+               and e["round"] >= 1]
+    if not swapped:
+        raise AssertionError("serve while training: no swap to a trained "
+                             "round")
+    return res
+
+
+def serve_phase(kernels: list) -> None:
+    """Phase 4k; adds the serving launches of ``ssd_diag`` and its time at
+    the serving shape to its row of ``kernels``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as SS
+    t0 = time.perf_counter()
+    models = {}
+    for arch in SERVE_MODELS:
+        models[arch] = serve_model(arch)
+        _free()
+    swt = serve_while_train_path()
+    _free()
+    row = next(k for k in kernels if k["name"] == "ssd_diag")
+    serving = models["zamba2-1.2b"]["launches"]["ssd_diag"]   # the CLI
+    row["launches_by_path"] = {"hybrid": row["launches"],
+                               "serving": serving,
+                               "serve_while_train":
+                                   swt["launches"]["ssd_diag"]}
+    row["launches"] += serving + swt["launches"]["ssd_diag"]
+    # the serving prefill's shape: (B, nc, L, ds, nh, hd)
+    b, nc, L, ds, nh, hd = SERVE_BATCH, SERVE_PROMPT // 256, 256, 64, 64, 64
+    g = torch.Generator(device="cuda").manual_seed(8)
+    sets = [_ssd_inputs(b, nc, L, ds, nh, hd, torch.float32, g, True)
+            for _ in range(3)]
+    t = {"ms": _device_ms(SS.ssd_diag, sets),
+         "plain_ms": _time_ms(ref.ssd_diag_ref, sets)}
+    pairs = L * (L + 1) // 2
+    flops = 2 * pairs * b * nc * (ds + nh * hd)
+    bd = _bounds(flops, 4 * (2 * b * nc * L * ds + b * nc * L * nh
+                             + 2 * b * nc * L * nh * hd))
+    row["serving"] = {"shape": [b, nc, L, ds, nh, hd], **t,
+                      "bound_ms": bd["bound_ms"], "bound_by": bd["bound_by"]}
+    log(f"time ssd_diag at the serving prefill's shape {(b, nc, L, ds, nh, hd)}"
+        f" f32: device {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+        f"{bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+    log("serving summary " + json.dumps(
+        {a: {k: (round(v, 6) if isinstance(v, float) else v)
+             for k, v in m.items()} for a, m in models.items()}))
+    log(f"phase 4k took {time.perf_counter() - t0:.1f} s")
+
+
 def _device_us(e) -> float:
     """Self device time of a profiler row (the attribute was renamed)."""
     t = getattr(e, "self_device_time_total", None)
@@ -3238,6 +3636,9 @@ def main() -> int:
     _free()
 
     granite_phase(kernels)
+    _free()
+
+    serve_phase(kernels)
 
     log(f"chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
 """Config registry of the port: the paper CNNs, the dense LM, the MoE LM,
-the hybrid, and their reduced test sizes."""
+the hybrid, their reduced test sizes, and the name lookup the CLIs use."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +11,18 @@ from repro_torch.configs.paper_cnns import ALEXNET, CNNS, LENET, RESNET18
 DEEPSEEK_7B = deepseek_7b.CONFIG
 GRANITE_MOE_1B_A400M = granite_moe_1b_a400m.CONFIG
 ZAMBA2_1_2B = zamba2_1_2b.CONFIG
+
+#: the ported LM configs by name (the reference's ``ARCHS``, restricted)
+ARCHS = {c.name: c for c in (DEEPSEEK_7B, GRANITE_MOE_1B_A400M, ZAMBA2_1_2B)}
+ALL_MODELS = {**ARCHS, **CNNS}
+
+
+def get_model_config(name: str) -> ModelConfig:
+    try:
+        return ALL_MODELS[name]
+    except KeyError:
+        raise KeyError(f"unknown arch {name!r}; the port has "
+                       f"{sorted(ALL_MODELS)}") from None
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
@@ -52,6 +64,6 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, **upd)
 
 
-__all__ = ["ALEXNET", "CNNS", "DEEPSEEK_7B", "GRANITE_MOE_1B_A400M", "LENET",
-           "RESNET18", "ZAMBA2_1_2B", "HeliosConfig", "ModelConfig",
-           "reduced"]
+__all__ = ["ALEXNET", "ALL_MODELS", "ARCHS", "CNNS", "DEEPSEEK_7B",
+           "GRANITE_MOE_1B_A400M", "LENET", "RESNET18", "ZAMBA2_1_2B",
+           "HeliosConfig", "ModelConfig", "get_model_config", "reduced"]

@@ -4,6 +4,8 @@ the same arrays as the reference's generators.
 
 * :func:`class_gaussian_images` — MNIST/CIFAR-shaped classes: each class
   has a random low-frequency template; a sample is its template plus noise.
+* :func:`markov_tokens` — token streams from one sparse Markov chain (the
+  serving prompts).
 * :func:`markov_topic_tokens` — token streams from per-topic Markov chains,
   with the topic as the label of the non-IID split.
 """
@@ -37,6 +39,21 @@ def class_gaussian_images(num: int, image_size: int, channels: int,
     images = templates[labels] + noise * rng.normal(
         size=(num, image_size, image_size, channels))
     return images.astype(np.float32), labels
+
+
+def markov_tokens(num_seqs: int, seq_len: int, vocab: int, seed: int = 0,
+                  branching: int = 8) -> np.ndarray:
+    """(N, S) int32 sequences from a sparse random Markov chain: each token
+    has ``branching`` plausible successors."""
+    rng = np.random.default_rng(seed)
+    succ = rng.integers(0, vocab, size=(vocab, branching))
+    out = np.empty((num_seqs, seq_len), np.int32)
+    state = rng.integers(0, vocab, size=num_seqs)
+    for t in range(seq_len):
+        out[:, t] = state
+        choice = rng.integers(0, branching, size=num_seqs)
+        state = succ[state, choice]
+    return out
 
 
 def markov_topic_tokens(num_seqs: int, seq_len: int, vocab: int,

@@ -39,15 +39,27 @@ and overrides its hooks (``_train_cohort``, ``_write_volumes``,
 
 The loops never wait for the device except in ``evaluate`` and the history
 row behind the eval gate.
+
+Telemetry (``repro_torch.obs``): the run's :class:`Recorder` holds the
+engines' counters; armed, it also takes the reference's spans
+(``scheme.round_start`` / ``train_cohort`` / ``scheme.round_end`` /
+``publish``), events (``round``, ``volumes``, ``history``, ``completion``,
+``drop``, ``bucket``, ``publish``, ``error_store``) and histograms
+(``staleness``, ``queue_depth``, ``bucket_size``), all from host values
+the loops already hold.  ``publish_dir`` makes every ``publish_every``-th
+sync round write the global params as an atomic checkpoint for a
+``launch.serve.ServeLoop`` to pick up.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch import checkpoint as CKPT
 from repro_torch.configs.base import HeliosConfig, ModelConfig
 from repro_torch.core import aggregation as AG
 from repro_torch.core import masking as MK
@@ -66,7 +78,7 @@ from repro_torch.federated.schemes import Scheme, make_scheme
 from repro_torch.kernels.ops import CUDA, REFERENCE, canonical_impl
 from repro_torch.models import init_params as _init_params
 from repro_torch.models.module import tree_map, tree_paths, unflatten
-from repro_torch.obs.recorder import Recorder
+from repro_torch.obs import recorder as OBS
 from repro_torch.optim import apply_updates, make_optimizer
 from repro_torch.optim import compression as CP
 
@@ -217,6 +229,19 @@ class FLRun:
     #: the first ``comp_warmup`` sync rounds upload dense (the uncompressed
     #: round exactly); the async loops always compress
     comp_warmup: int = 0
+    #: telemetry recorder; None builds one, armed only under
+    #: ``REPRO_OBS=on`` (or an ``obs.override``).  Pass one to arm it or to
+    #: share it with other runs and the serving plane.  The engine's
+    #: counters (``uplink_updates``, ``events_processed``, ...) are views
+    #: onto it.
+    recorder: Optional[OBS.Recorder] = None
+    #: serve while you train: every ``publish_every``-th sync round writes
+    #: the global params to this directory as an atomic checkpoint
+    #: (``repro_torch.checkpoint``) with ``{"round", "sim_time", "scheme"}``
+    #: metadata, the newest ``publish_keep`` kept
+    publish_dir: Optional[str] = None
+    publish_every: int = 1
+    publish_keep: int = 3
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -250,8 +275,11 @@ class FLRun:
                              "least the newest anchor full-precision)")
         if self.comp_warmup < 0:
             raise ValueError("comp_warmup must be >= 0")
+        if self.publish_every < 1:
+            raise ValueError("publish_every must be >= 1")
         self._n_params, self._n_leaves = CP.param_census(self.global_params)
-        self.rec = Recorder()
+        self.rec = self.recorder if self.recorder is not None \
+            else OBS.Recorder()
         # the encoded coordinates, summed on the device in f32 (update by
         # update in FLRun, bucket by bucket and round by round in the
         # stacked engines, as in the reference); read by uplink_bytes()
@@ -264,6 +292,8 @@ class FLRun:
                                            device=self.device)
         self._local_train = _make_local_train(self.adapter, self.opt)
         self._scheme.init_run(self)
+        if self.rec.armed:                 # the manifest is emission-side
+            self.rec.manifest.update(self._obs_manifest())
 
     # -- the uplink codec --------------------------------------------------
     def _compress_one(self, base, new_params, err, pmasks):
@@ -351,6 +381,55 @@ class FLRun:
     @property
     def snapshot_anchor_misses(self) -> int:
         return self.rec.count("snapshot_anchor_misses")
+
+    # -- telemetry -----------------------------------------------------------
+    def _obs_manifest(self) -> dict:
+        """The run's identity for the run log: engine, scheme and its flag
+        census, family, the kernel and codec knobs, the fleet, seeds and
+        the git sha."""
+        return {"engine": type(self).__name__,
+                "scheme": self.scheme,
+                "scheme_flags": self._scheme.manifest(),
+                "family": self.cfg.family,
+                "model": self.cfg.name,
+                "kernels": self.kernels,
+                "mask_block": self.mask_block,
+                "device": str(self.device),
+                "compression": self.compression,
+                "comp_frac": self.comp_frac,
+                "comp_bits": self.comp_bits,
+                "comp_warmup": self.comp_warmup,
+                "clients": len(self.clients),
+                "participation": self.participation,
+                "sampler": self.sampler,
+                "local_steps": self.local_steps,
+                "batch_size": self.batch_size,
+                "lr": self.lr,
+                "seed": self.seed,
+                "git_sha": OBS.git_sha()}
+
+    def _obs_finish(self, seam: str) -> None:
+        """End-of-run telemetry, armed only (a disarmed run does no extra
+        work and waits for nothing here): the byte gauges and the error
+        store's census."""
+        if not self.rec.armed:
+            return
+        self.rec.gauge("uplink_mb", self.uplink_bytes() / 1e6)
+        self.rec.gauge("downlink_mb", self.downlink_bytes() / 1e6)
+        if self.compression != "none":
+            self.rec.event("error_store", seam=seam,
+                           **self._err_store.stats())
+
+    def _publish_round(self, r: int, clock: float) -> None:
+        """Round-end publish (serve while you train): the global params as
+        an atomic snapshot a polling ``ServeLoop`` can swap to."""
+        with self.rec.span("publish", sim=clock, round=r):
+            CKPT.save(self.publish_dir, self.round, self.global_params,
+                      keep=self.publish_keep,
+                      metadata={"round": self.round, "sim_time": clock,
+                                "scheme": self.scheme})
+        self.rec.inc("published_snapshots")
+        self.rec.event("publish", sim=clock, round=r, step=self.round)
 
     # -- one client's cycle ------------------------------------------------
     def _sample_batches(self, client: Client) -> dict:
@@ -544,6 +623,9 @@ class FLRun:
                 "ratios": [float(x) for x in torch.stack(ratios).cpu()],
                 "volumes": [c.volume for c in self.clients],
                 "downlink_mb": self.downlink_bytes() / 1e6})
+            row = self.history[-1]
+            self.rec.event("history", sim=row["time"],
+                           **{k: v for k, v in row.items() if k != "time"})
 
     def run_sync(self, rounds: int, eval_every: int = 1) -> List[dict]:
         """``rounds`` synchronous rounds: draw the cohort -> pace over the
@@ -558,19 +640,32 @@ class FLRun:
             pace = _collab_pace(cclients)
             times = self._round_times(cclients)
             self.rec.inc("downlink_updates", len(cohort))   # global broadcast
-            self._scheme.round_start(self)
-            losses, ratios = self._train_cohort(cohort, cclients)
+            with self.rec.span("scheme.round_start", sim=clock, round=r):
+                self._scheme.round_start(self)
+            with self.rec.maybe_profile(r), \
+                    self.rec.span("train_cohort", sim=clock, round=r):
+                losses, ratios = self._train_cohort(cohort, cclients)
             self.rec.inc("uplink_updates", len(cohort))
             if self.compression != "none" and not self._comp_active():
                 self.rec.inc("uplink_dense_updates", len(cohort))  # warmup
             self.rec.inc("uplink_extra_updates",
                          len(cohort) * self._scheme.extra_dense_uplink)
             self._adapt_volumes(cohort, cclients, times, pace)
-            self._scheme.round_end(self)
-            clock += self._scheme.round_duration(times, cclients)
+            with self.rec.span("scheme.round_end", sim=clock, round=r):
+                self._scheme.round_end(self)
+            dur = self._scheme.round_duration(times, cclients)
+            clock += dur
             self.round += 1
+            self.rec.event("round", sim=clock, round=r, cohort=len(cohort),
+                           pace=pace, duration=dur)
+            self.rec.event("volumes", sim=clock, round=r,
+                           volumes=[self._scheme.effective_volume(c)
+                                    for c in cclients if c.is_straggler])
+            if self.publish_dir and (r + 1) % self.publish_every == 0:
+                self._publish_round(r, clock)
             self._record_round(r, rounds, eval_every, clock, losses, ratios)
         self._finish_sync()
+        self._obs_finish("run_sync")
         return self.history
 
     # -- the async event loop ----------------------------------------------
@@ -623,12 +718,15 @@ class FLRun:
             c = by_id[cid]
             if self.dropout is not None and self.dropout.drops(cid):
                 self.rec.inc("events_dropped")
+                self.rec.event("drop", sim=clock.now, cid=cid)
                 clock.schedule(self._next_delay(c) * self.dropout.penalty,
                                cid)
                 continue
             # anchors are never evicted (below): this lookup cannot miss
             base = snapshots[c.staleness_anchor]
             stale = agg_counter - c.staleness_anchor
+            self.rec.event("completion", sim=clock.now, cid=cid, stale=stale)
+            self.rec.observe("staleness", stale)
             if ring_mode != "fp32" and stale >= self.comp_fresh:
                 base = AG.lossy_roundtrip(base, ring_ref, self.comp_bits)
             new_params, masks, _, loss = self._client_cycle(c, base)
@@ -662,6 +760,7 @@ class FLRun:
             clock.schedule(self._next_delay(c), cid)
             self.rec.inc("events_processed")
             self.rec.inc("downlink_updates")   # the event's snapshot pull
+            self.rec.observe("queue_depth", len(clock))
             if not c.is_straggler:
                 done_fast += 1
                 if eval_every > 0 and done_fast % eval_every == 0:
@@ -674,8 +773,13 @@ class FLRun:
                         "loss": float(loss),  # repro: noqa[R3]
                         "staleness": stale,
                         "downlink_mb": self.downlink_bytes() / 1e6})
+                    row = self.history[-1]
+                    self.rec.event("history", sim=row["time"],
+                                   **{k: v for k, v in row.items()
+                                      if k != "time"})
         self.rec.set("agg_counter", agg_counter)
         self.rec.set("queue_peak", clock.peak_depth)
+        self._obs_finish("run_async[seq]")
         return self.history
 
     # -- elastic membership (§VI.C) ----------------------------------------
@@ -843,7 +947,14 @@ class AsyncFLRun(FLRun):
             for i, ev in enumerate(evs):
                 if self.dropout is not None and self.dropout.drops(ev.cid):
                     drop_cids.add(ev.cid)
+                    self.rec.event("drop", sim=ev.time, cid=ev.cid)
                     continue
+                # one completion an executed event, in pop order with the
+                # drops between them, staleness before the bucket's mixes
+                # (the sequential loop's stream)
+                self.rec.event("completion", sim=ev.time, cid=ev.cid,
+                               stale=self.agg_counter + len(exec_evs)
+                               - by_id[ev.cid].staleness_anchor)
                 exec_evs.append(ev)
                 if not by_id[ev.cid].is_straggler:
                     budget -= 1
@@ -878,7 +989,10 @@ class AsyncFLRun(FLRun):
                     c.staleness_anchor = agg0 + i + 1
                     fresh_write.append((agg0 + i + 1) % F)
                 self.rec.set("agg_counter", agg0 + b)
+                for st in stales:
+                    self.rec.observe("staleness", st)
                 pad = bpad - b
+                bt0 = time.perf_counter() if self.rec.armed else 0.0
                 args = (ring, base_slots + [0] * pad,
                         write_slots + [ring.scratch] * pad, batches,
                         stales + [0] * pad, b, mix_weight, staleness_a)
@@ -901,6 +1015,12 @@ class AsyncFLRun(FLRun):
                 self.rec.inc("events_processed", b)
                 self.rec.inc("downlink_updates", b)   # per-event ring pulls
                 self.bucket_sizes.append(b)
+                self.rec.observe("bucket_size", b)
+                self.rec.observe("queue_depth", len(clock))
+                self.rec.event(
+                    "bucket", sim=clock.now, size=b, pad=pad,
+                    queue=len(clock),
+                    wall_ms=(time.perf_counter() - bt0) * 1e3)
                 done_fast += sum(not by_id[ev.cid].is_straggler
                                  for ev in exec_evs)
             # every handled event rescheduled in event order (the arrival
@@ -922,10 +1042,15 @@ class AsyncFLRun(FLRun):
                     "staleness": float(np.mean(stales)),
                     "bucket": b,
                     "downlink_mb": self.downlink_bytes() / 1e6})
+                row = self.history[-1]
+                self.rec.event("history", sim=row["time"],
+                               **{k: v for k, v in row.items()
+                                  if k != "time"})
                 next_rec = (done_fast // eval_every + 1) * eval_every
         self.rec.set("snapshot_peak", ring.alloc.peak_live)
         self.rec.set("snapshot_anchor_misses", ring.alloc.anchor_misses)
         self.rec.set("queue_peak", clock.peak_depth)
+        self._obs_finish("run_async[bucket]")
         return self.history
 
 

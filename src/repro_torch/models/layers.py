@@ -115,20 +115,26 @@ def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
         b, s, h * groups, d)
 
 
-def dense_attention(q, k, v, *, causal: bool):
+def dense_attention(q, k, v, *, causal: bool, q_offset: int = 0,
+                    kv_len_mask: Optional[torch.Tensor] = None):
     """Materialized-scores attention.  q: (B, Sq, H, hd); k, v:
-    (B, Sk, KV, hd).  Scores in f32, masked at -1e30."""
+    (B, Sk, KV, hd).  Scores in f32, masked at -1e30.  ``q_offset`` is the
+    position of the first query (causal masking of a query block that
+    starts later in the sequence); ``kv_len_mask`` (B, Sk) bool marks the
+    keys each row may attend to."""
     groups = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, groups)
     v = _repeat_kv(v, groups)
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhk,bshk->bhqs", q.float(), k.float()) * scale
+    neg = torch.full((), -1e30, device=logits.device)
     if causal:
-        qpos = torch.arange(q.shape[1], device=q.device)
+        qpos = torch.arange(q.shape[1], device=q.device) + q_offset
         kpos = torch.arange(k.shape[1], device=q.device)
         mask = qpos[:, None] >= kpos[None, :]
-        logits = torch.where(mask[None, None], logits,
-                             torch.full((), -1e30, device=logits.device))
+        logits = torch.where(mask[None, None], logits, neg)
+    if kv_len_mask is not None:
+        logits = torch.where(kv_len_mask[:, None, None, :], logits, neg)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhqs,bshk->bqhk", probs, v)
 
@@ -138,8 +144,7 @@ def attend(q, k, v, *, causal: bool, impl: str = "auto"):
     causal self-attention shorter than :data:`CHUNKED_FROM` on the flash
     kernel (recompute backward); anything else takes ``"auto"``: dense
     attention, or the chunked lowering for long sequences, which the port
-    does not have yet.  (The reference's key-length mask and query offset
-    serve prefill and decode, which are not ported.)"""
+    does not have yet."""
     if impl in ("pallas", ops.CUDA):
         if causal and q.shape[1] == k.shape[1] and q.shape[1] < CHUNKED_FROM:
             groups = q.shape[2] // k.shape[2]
@@ -161,14 +166,48 @@ def attend(q, k, v, *, causal: bool, impl: str = "auto"):
 
 
 def attention_fwd(params, x, positions, *, causal=True, theta=10_000.0,
-                  impl="auto", head_mask: Optional[torch.Tensor] = None):
+                  impl="auto", head_mask: Optional[torch.Tensor] = None,
+                  return_kv: bool = False):
     """Full self-attention over x: (B, S, d) with RoPE.  ``head_mask``
-    (H,) 0/1 multiplies whole query heads (Helios head units)."""
+    (H,) 0/1 multiplies whole query heads (Helios head units).  With
+    ``return_kv`` (prefill) also returns the KV cache ``{"k", "v"}``
+    (B, S, KV, hd), K after RoPE."""
     q, k, v = _project_qkv(params, x, positions, theta)
     if head_mask is not None:
         q = q * head_mask.to(q.dtype)[None, None, :, None]
     out = attend(q, k, v, causal=causal, impl=impl)
-    return torch.einsum("bqhk,hkd->bqd", out, params["wo"])
+    out = torch.einsum("bqhk,hkd->bqd", out, params["wo"])
+    return (out, {"k": k, "v": v}) if return_kv else out
+
+
+def attention_decode(params, x, cache, pos: int, *, theta=10_000.0,
+                     head_mask: Optional[torch.Tensor] = None):
+    """One decode step: x (B, 1, d) at position ``pos`` (a host int);
+    ``cache`` {"k", "v"}: (B, S_max, KV, hd).
+
+    The new K / V are written IN PLACE at ``pos``, and the token attends to
+    positions <= pos.  A ``pos`` outside the cache raises: the reference's
+    ``dynamic_update_slice`` clamps it to the last slot instead, so a cache
+    as long as the prompt overwrites its last entry at every step (ROADMAP
+    §3); the serving layer sizes the cache for the generated tokens.
+    Returns (out, cache)."""
+    s_max = cache["k"].shape[1]
+    if not 0 <= pos < s_max:
+        raise ValueError(f"decode position {pos} outside the KV cache of "
+                         f"{s_max} positions; pad the prefill cache to the "
+                         f"prompt plus the generated tokens")
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.long,
+                           device=x.device)
+    q, k_new, v_new = _project_qkv(params, x, positions, theta)
+    if head_mask is not None:
+        q = q * head_mask.to(q.dtype)[None, None, :, None]
+    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+    valid = (torch.arange(s_max, device=x.device) <= pos)[None, :]
+    valid = valid.expand(x.shape[0], s_max)
+    out = dense_attention(q, cache["k"], cache["v"], causal=False,
+                          kv_len_mask=valid)
+    return torch.einsum("bqhk,hkd->bqd", out, params["wo"]), cache
 
 
 # ---------------------------------------------------------------------------

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -52,32 +53,48 @@ def _leaf_seed(seed: int, path: str) -> int:
     return int.from_bytes(digest, "little") & (2 ** 63 - 1)
 
 
+def _draw(path: str, p: P, seed: int, dtype: torch.dtype,
+          dev: torch.device) -> torch.Tensor:
+    dt = p.dtype or dtype
+    if p.init == "zeros":
+        t = torch.zeros(p.shape, dtype=dt)
+    elif p.init == "ones":
+        t = torch.ones(p.shape, dtype=dt)
+    else:
+        g = torch.Generator().manual_seed(_leaf_seed(seed, path))
+        if p.scale is not None:
+            scale = p.scale
+        elif p.init == "embed":
+            scale = 1.0
+        else:
+            scale = 1.0 / np.sqrt(_fan_in(p))
+        t = torch.randn(p.shape, generator=g).mul_(scale).to(dt)
+    return t.to(dev)
+
+
+#: host threads drawing leaves at once (each holds one leaf in host memory)
+INIT_THREADS = 4
+
+
 def init_params(spec: Dict[str, Any], seed: int = 0, device: DeviceLike = None,
                 dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
     """Concrete parameters: N(0, 1/fan_in) weights (N(0, scale) for
     ``embed`` leaves), zero biases, in the spec's nesting.
 
     Each leaf draws from its own CPU ``torch.Generator`` seeded from
-    (seed, path), so the values do not depend on the device they land on.
+    (seed, path), so the values depend neither on the device they land on
+    nor on the order of the draws; large leaves are drawn on
+    :data:`INIT_THREADS` host threads (a full-depth 7 B model's draw is
+    bound by the host's normal sampler).
     """
     dev = resolve_device(device)
-    out = {}
-    for path, p in tree_paths(spec, is_leaf=lambda v: isinstance(v, P)):
-        dt = p.dtype or dtype
-        if p.init == "zeros":
-            t = torch.zeros(p.shape, dtype=dt)
-        elif p.init == "ones":
-            t = torch.ones(p.shape, dtype=dt)
-        else:
-            g = torch.Generator().manual_seed(_leaf_seed(seed, path))
-            if p.scale is not None:
-                scale = p.scale
-            elif p.init == "embed":
-                scale = 1.0
-            else:
-                scale = 1.0 / np.sqrt(_fan_in(p))
-            t = (torch.randn(p.shape, generator=g) * scale).to(dt)
-        out[path] = t.to(dev)
+    leaves = tree_paths(spec, is_leaf=lambda v: isinstance(v, P))
+    order = sorted(range(len(leaves)),
+                   key=lambda i: -int(np.prod(leaves[i][1].shape)))
+    with ThreadPoolExecutor(INIT_THREADS) as pool:
+        futs = {i: pool.submit(_draw, *leaves[i], seed, dtype, dev)
+                for i in order}
+        out = {leaves[i][0]: futs[i].result() for i in range(len(leaves))}
     return unflatten(out)
 
 

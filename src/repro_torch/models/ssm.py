@@ -1,5 +1,6 @@
 # repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
-"""Mamba2 (SSD) block in chunked matmul form: the training forward.
+"""Mamba2 (SSD) block in chunked matmul form: the forward, its cache for
+serving, and the one-token decode step.
 
 Training uses the chunked SSD algorithm: an attention-like intra-chunk term
 plus a scan of chunk states across chunks.  With ``kernels="cuda"`` the
@@ -7,7 +8,11 @@ intra-chunk term runs on the ``ssd_diag`` kernel (``kernels/ssd_scan.py``),
 which keeps the (L, L, nh) decay tensors out of device memory; otherwise it
 is the plain einsum form.  The chunk states, the scan over chunks (a Python
 loop over nc) and the inter-chunk term stay plain PyTorch, as they are
-plain jnp in the reference.  Decode and the prefill cache are not ported.
+plain jnp in the reference.  Serving: ``mamba2_fwd(return_cache=True)``
+(the prefill: the same chunked SSD, so ``kernels="cuda"`` runs ``ssd_diag``
+there too) returns the final state and the last ``D_CONV - 1`` raw inputs
+of the conv, and :func:`mamba2_decode` advances both by one token with the
+plain recurrence.
 
 Helios unit: ``ssm_heads``; state dims within a head are coupled, heads
 are independent.
@@ -138,12 +143,40 @@ def ssd_recurrent_ref(xh, Bm, Cm, dt, A):
 
 
 def mamba2_fwd(params, x, cfg, *, head_mask: Optional[torch.Tensor] = None,
-               kernels: Optional[str] = None):
-    """Full block in training mode: (B, S, d) -> (B, S, d)."""
+               kernels: Optional[str] = None, return_cache: bool = False):
+    """Full block: (B, S, d) -> (B, S, d); with ``return_cache`` also the
+    decode cache ``{"h": (B, nh, hd, ds), "conv": (B, D_CONV - 1, nh, hd)}``
+    (the last raw, pre-conv inputs, zero-padded for a short prompt)."""
     xh_raw, z, Bm, Cm, dt = _proj(params, x, head_mask)
     xh = _causal_conv(xh_raw, params["conv"])
     A = -torch.exp(params["A_log"].float())
-    y, _ = ssd_chunked(xh, Bm, Cm, dt, A, cfg.ssm_chunk, kernels=kernels)
+    y, h = ssd_chunked(xh, Bm, Cm, dt, A, cfg.ssm_chunk, kernels=kernels)
     y = y + params["D"][None, None, :, None] * xh
     y = y * F.silu(z)
-    return torch.einsum("bshk,hkd->bsd", y, params["wo"])
+    out = torch.einsum("bshk,hkd->bsd", y, params["wo"])
+    if return_cache:
+        conv_state = F.pad(xh_raw, (0, 0, 0, 0, D_CONV - 1, 0))[
+            :, -(D_CONV - 1):]
+        return out, {"h": h, "conv": conv_state}
+    return out
+
+
+def mamba2_decode(params, x, cache, cfg,
+                  head_mask: Optional[torch.Tensor] = None):
+    """One-token step.  x: (B, 1, d); cache as :func:`mamba2_fwd` returns
+    it.  Returns (out (B, 1, d), the new cache)."""
+    xh, z, Bm, Cm, dt = _proj(params, x, head_mask)           # (B, 1, ...)
+    window = torch.cat([cache["conv"], xh], dim=1)            # (B, K, nh, hd)
+    conv_out = torch.einsum("bkhd,khd->bhd", window, params["conv"])[:, None]
+    xh_c = F.silu(conv_out)                                   # (B, 1, nh, hd)
+    f32 = torch.float32
+    A = -torch.exp(params["A_log"].float())
+    a = torch.exp(dt[:, 0].to(f32) * A)                       # (B, nh)
+    upd = (dt[:, 0, :, None, None] * xh_c[:, 0, :, :, None].to(f32)
+           * Bm[:, 0, None, None, :].to(f32))
+    h = cache["h"].to(f32) * a[:, :, None, None] + upd
+    y = torch.einsum("bhpi,bi->bhp", h, Cm[:, 0].to(f32))[:, None]
+    y = y.to(x.dtype) + params["D"][None, None, :, None] * xh_c
+    y = y * F.silu(z)
+    out = torch.einsum("bshk,hkd->bsd", y, params["wo"])
+    return out, {"h": h.to(cache["h"].dtype), "conv": window[:, 1:]}

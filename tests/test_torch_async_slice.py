@@ -27,10 +27,15 @@ At p 0.4 the first completion drops and the events draw other batches.
 Expected: identical history keys and event counters, acc and loss within
 1e-5, params within atol 1e-5, identical straggler masks.
 """
+import os
+
 import jax
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 import repro.configs as JC  # noqa: E402
@@ -47,7 +52,7 @@ from repro_torch.federated import (BernoulliDropout, FLRun,  # noqa: E402
                                    JitteredArrival, SimClock, make_fleet,
                                    setup_clients)
 from repro_torch.federated import events as tEV  # noqa: E402
-from test_torch_keys import jax_keys  # noqa: E402
+from test_torch_keys import jax_keys, share_jax_programs  # noqa: E402
 
 ATOL = 1e-5
 CYCLES = 6
@@ -92,6 +97,7 @@ def runs(setting):
                         j_setup_clients(j_make_fleet(2, 2), parts, jh),
                         train, test, kernels=jkernels,
                         **_processes(procs, jEV), **RUN_KW)
+        share_jax_programs(jrun)
         init = {k: np.asarray(v)
                 for k, v in jax.device_get(jrun.global_params).items()}
         jrun.run_async(CYCLES, **kw)

@@ -11,12 +11,16 @@ gradients atol/rtol 1e-4.  The CUDA kernel itself is held against the same
 plain version on the card by ``chip_smoke.py``.
 """
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as jops  # noqa: E402

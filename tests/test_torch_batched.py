@@ -28,11 +28,16 @@ run the client-axis wrappers' plain bodies on the CPU.
   against the JAX package's.
 * a token-LM family under ``BatchedFLRun`` raises.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 import repro.configs as JC  # noqa: E402

@@ -9,11 +9,16 @@ agree at atol 1e-5, unmasked (plain path) and masked (the port's
 filters with block-constant fc units at ``mask_block=128``, so AlexNet's
 fc0 (8 blocks) and fc1 (4 blocks) really skip dead blocks.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 import repro.configs as JC  # noqa: E402

@@ -19,11 +19,16 @@ the lossy half of ``repro_torch.core.aggregation`` against
   under ``delta``, one round against JAX at 1e-4 (the family-generic
   ``expand_masks`` path of the codec).
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 import repro.configs as JC  # noqa: E402
@@ -39,7 +44,7 @@ from repro_torch.data.synthetic import markov_topic_tokens  # noqa: E402
 from repro_torch.federated import FLRun, make_fleet, setup_clients  # noqa: E402
 from repro_torch.obs.recorder import Recorder  # noqa: E402
 from repro_torch.optim import compression as tCP  # noqa: E402
-from test_torch_keys import jax_keys  # noqa: E402
+from test_torch_keys import jax_keys, share_jax_programs  # noqa: E402
 
 LOSSY = ("topk", "quant", "delta")
 
@@ -295,6 +300,7 @@ def test_deepseek_delta_round_matches_jax():
     jrun = JaxFLRun(JC.reduced(JC.ARCHS["deepseek-7b"]), jh, "helios",
                     j_setup_clients(j_make_fleet(2, 2), parts, jh), train,
                     test, **kw)
+    share_jax_programs(jrun)
     init = jax.device_get(jrun.global_params)
     jrun.run_sync(1)
     with jax_keys():

@@ -21,10 +21,15 @@ agree within 4.97e-6 (ROADMAP.md §3), so its bucket engine is held to the
 sequential semantics both reference engines state, and its distance from
 the JAX bucket engine is pinned to that one code step.
 """
+import os
+
 import jax
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 from repro.federated import AsyncFLRun as JaxAsyncFLRun  # noqa: E402

@@ -33,11 +33,16 @@ counted while it runs; quant bills mask coverage and is held at 1e-3.
   grows with participation; topk's >= 10x uplink reduction; an engine
   built without ``kernels`` runs the plain versions on the CPU.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 import repro.configs as JC  # noqa: E402
@@ -52,7 +57,7 @@ import repro_torch.configs as TC  # noqa: E402
 from repro_torch.federated import (BatchedFLRun, FLRun,  # noqa: E402
                                    make_fleet, setup_clients)
 from repro_torch.optim import compression as tCP  # noqa: E402
-from test_torch_keys import jax_keys  # noqa: E402
+from test_torch_keys import jax_keys, share_jax_programs  # noqa: E402
 
 LOSSY = ("topk", "quant", "delta")
 ATOL = 1e-4
@@ -115,6 +120,8 @@ def make_pair(setting, classes, scheme="helios", **kw):
     jrun = jcls(JC.reduced(JC.CNNS["lenet"]), jh, scheme,
                 j_setup_clients(j_make_fleet(4, 4), parts, jh), train, test,
                 **RUN_KW, **kw)
+    if jcls is JaxFLRun:
+        share_jax_programs(jrun)
     init = {k: np.asarray(v)
             for k, v in jax.device_get(jrun.global_params).items()}
     trun = tcls(TC.reduced(TC.LENET), th, scheme,

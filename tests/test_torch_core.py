@@ -8,12 +8,16 @@ masks, skip counters and key advances.  Eq. 1 scores, mask expansion,
 Eq. 10 / masked-mean aggregation and momentum steps agree at atol 1e-6.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 import repro.configs as JC  # noqa: E402

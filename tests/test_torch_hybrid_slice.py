@@ -35,6 +35,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 import repro.configs as JC  # noqa: E402
@@ -62,7 +65,8 @@ from repro_torch.kernels import ssd_scan as tSS  # noqa: E402
 from repro_torch.models import build, logical_axes, make_full_masks  # noqa: E402
 from repro_torch.models import hybrid as tH  # noqa: E402
 from repro_torch.models import transformer as tT  # noqa: E402
-from test_torch_keys import _jax_key, jax_keys  # noqa: E402
+from test_torch_keys import (_jax_key, jax_keys,  # noqa: E402
+                             share_jax_programs)
 
 ATOL = 1e-5
 B, S = 2, 64
@@ -252,6 +256,7 @@ def runs(setting):
         jrun = JaxFLRun(JCFG, jh, scheme,
                         j_setup_clients(j_make_fleet(2, 2), parts, jh),
                         train, test, kernels="reference", **RUN_KW)
+        share_jax_programs(jrun)
         init = jax.device_get(jrun.global_params)
         jrun.run_sync(2)
         with jax_keys():

@@ -1,7 +1,10 @@
 """The port stands alone: nothing under ``src/repro_torch/``, in
-``chip_smoke.py`` or in the port's ``scripts/`` imports JAX or the JAX
-package, and the package with its entry points imports in a process where
-``jax`` cannot be imported."""
+``chip_smoke.py`` or in the port's ``scripts/`` imports JAX, the JAX
+package or ``msgpack``, and the package with its entry points imports (and
+writes and reads a checkpoint) in a process where ``jax``, ``repro``,
+``msgpack`` and ``zstandard`` cannot be imported: the card's machine has
+no ``msgpack`` and may lack ``zstandard``, which the checkpoint module looks
+up only when it compresses."""
 import ast
 import os
 import subprocess
@@ -29,7 +32,7 @@ def _imported_modules(path: Path):
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro")
+    return top in ("jax", "jaxlib", "repro", "msgpack")
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -44,6 +47,8 @@ def test_port_imports_with_jax_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['repro'] = None\n"
+        "sys.modules['msgpack'] = None\n"
+        "sys.modules['zstandard'] = None\n"
         "import repro_torch, repro_torch.bridge, repro_torch.kernels.ops\n"
         "from repro_torch.federated import FLRun, setup_clients, make_fleet\n"
         "from repro_torch.models import init_params\n"
@@ -68,8 +73,28 @@ def test_port_imports_with_jax_blocked():
         "ring_gather_lossy, mix_bucket_ring_lossy, SnapshotRing)\n"
         "import repro_torch.drivers.scheme_gauntlet\n"
         "import repro_torch.drivers.heterogeneous_fl\n"
-        "assert not any(m == 'jax' or m.startswith('jax.') for m, v in "
-        "sys.modules.items() if v is not None)\n"
+        "import repro_torch.drivers.serve_while_train\n"
+        "import repro_torch.obs, repro_torch.obs.report\n"
+        "import repro_torch.obs.__main__\n"
+        "import repro_torch.checkpoint, repro_torch.checkpoint.wire\n"
+        "import repro_torch.launch, repro_torch.launch.serve\n"
+        "import repro_torch.launch.serve.__main__\n"
+        "from repro_torch.launch.serve import (GenerationServer, ServeLoop, "
+        "PoissonTraffic, make_ce_eval, serve_while_training, main)\n"
+        "from repro_torch.models.transformer import lm_prefill, lm_decode\n"
+        "from repro_torch.models.hybrid import hybrid_prefill, "
+        "hybrid_decode\n"
+        "from repro_torch.models.ssm import mamba2_decode\n"
+        "from repro_torch.configs import get_model_config\n"
+        "assert build(get_model_config('zamba2-1.2b')).prefill_fn\n"
+        "assert not any(m.split('.')[0] in ('jax', 'repro', 'msgpack', "
+        "'zstandard') for m, v in sys.modules.items() if v is not None)\n"
+        "import tempfile, torch\n"
+        "d = tempfile.mkdtemp()\n"
+        "repro_torch.checkpoint.save(d, 1, {'w': torch.ones(3)})\n"
+        "assert repro_torch.checkpoint.codec_name() == 'zlib'\n"
+        "out, _ = repro_torch.checkpoint.restore(d, {'w': torch.zeros(3)})\n"
+        "assert out['w'].tolist() == [1.0, 1.0, 1.0]\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,

@@ -5,13 +5,23 @@ test-only backend that walks key paths with ``jax.random``.
 path, so the port's Eq. 2 masks can be held bit for bit against the JAX
 package (test_torch_core.py, test_torch_slice.py).  It lives here, in the
 tests, because the port itself never imports JAX.
+
+``share_jax_programs`` lets the parity walls compile each JAX ``FLRun``
+program once a test process: runs of the same config, kernels, mask block,
+lr, control flag and codec jit the same local training, evaluation and
+codec functions, so a later run takes an earlier run's jitted callables
+(the same programs; the numbers are bit for bit the same).
 """
 import functools
+import os
 
 import jax
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import keys as KY  # noqa: E402
@@ -43,6 +53,30 @@ class JaxKeyBackend:
 def jax_keys():
     """Context manager: route the port's draws through ``jax.random``."""
     return KY.use_backend(JaxKeyBackend())
+
+
+#: signature -> the jitted callables of the first JAX FLRun built with it
+_JAX_PROGRAMS = {}
+
+
+def share_jax_programs(jrun):
+    """Give a JAX ``FLRun`` (exactly that class) the jitted local training,
+    evaluation and codec of an earlier run in this process with the same
+    config, kernels, mask block, lr, control flag and codec settings: the
+    same functions of their arguments, so they need not compile again.
+    The first run with a signature leaves its own.  Returns ``jrun``."""
+    from repro.federated import FLRun
+    assert type(jrun) is FLRun, type(jrun)
+    key = (jrun.cfg, jrun.kernels, jrun.mask_block, jrun.lr,
+           jrun._scheme.uses_control, jrun.compression, jrun.comp_frac,
+           jrun.comp_bits)
+    names = ("_local_train", "_eval_chunk") + \
+        (("_compress_one",) if jrun.compression != "none" else ())
+    cached = _JAX_PROGRAMS.setdefault(
+        key, {n: getattr(jrun, n) for n in names})
+    for n, f in cached.items():
+        setattr(jrun, n, f)
+    return jrun
 
 
 def test_jax_backend_walks_the_reference_key_tree():

@@ -11,12 +11,16 @@ parameter-space masks exactly, and Eq. 2 masks on the {"heads", "mlp"}
 schema bit for bit under the test-only JAX key-path backend.
 """
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 import repro.configs as JC  # noqa: E402

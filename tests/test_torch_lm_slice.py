@@ -25,6 +25,9 @@ import jax
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 import repro.configs as JC  # noqa: E402
@@ -38,7 +41,7 @@ from repro_torch.data.synthetic import markov_topic_tokens  # noqa: E402
 from repro_torch.federated import FLRun, make_fleet, setup_clients  # noqa: E402
 from repro_torch.kernels import flash_attention as tFA  # noqa: E402
 from repro_torch.kernels import masked_matmul as tK  # noqa: E402
-from test_torch_keys import jax_keys  # noqa: E402
+from test_torch_keys import jax_keys, share_jax_programs  # noqa: E402
 
 ATOL = 1e-5
 SCHEMES = ("helios", "syn")
@@ -66,6 +69,7 @@ def runs(setting):
         jrun = JaxFLRun(jcfg, jh, scheme,
                         j_setup_clients(j_make_fleet(2, 2), parts, jh),
                         train, test, kernels="reference", **RUN_KW)
+        share_jax_programs(jrun)
         init = jax.device_get(jrun.global_params)
         jrun.run_sync(2)
         with jax_keys():

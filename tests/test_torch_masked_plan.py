@@ -20,11 +20,15 @@ versions on the card by ``chip_smoke.py``.
 """
 import ctypes
 import dataclasses
+import os
 import re
 
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import build  # noqa: E402

@@ -28,12 +28,16 @@ loss within 1e-5, identical straggler masks, params within atol 1e-5.
 """
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 import repro.configs as JC  # noqa: E402
@@ -57,7 +61,7 @@ from repro_torch.kernels import masked_matmul as tK  # noqa: E402
 from repro_torch.models import build, logical_axes, make_full_masks  # noqa: E402
 from repro_torch.models import transformer as tT  # noqa: E402
 from repro_torch.models.module import P  # noqa: E402
-from test_torch_keys import jax_keys  # noqa: E402
+from test_torch_keys import jax_keys, share_jax_programs  # noqa: E402
 
 ATOL = 1e-5
 B, S = 2, 24
@@ -270,6 +274,7 @@ def _run(case, setting):
     jrun = JaxFLRun(jcfg, jh, scheme,
                     j_setup_clients(j_make_fleet(2, 2), parts, jh),
                     train, test, kernels="reference", **RUN_KW)
+    share_jax_programs(jrun)
     init = jax.device_get(jrun.global_params)
     jrun.run_sync(2)
     with jax_keys():

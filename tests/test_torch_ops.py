@@ -10,11 +10,16 @@ is O(1)); masked gradient columns must be exactly 0.  The CUDA kernels
 themselves are held against the same plain versions on the card by
 ``chip_smoke.py``.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 from repro.kernels import ops as jops  # noqa: E402

@@ -20,10 +20,15 @@
   with white-box and with time-based identification: identical
   identification, assigned volume, history and params.
 """
+import os
+
 import jax
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 import repro.configs as JC  # noqa: E402
@@ -36,7 +41,7 @@ from repro_torch.data.federated import partition_noniid  # noqa: E402
 from repro_torch.data.synthetic import class_gaussian_images  # noqa: E402
 from repro_torch.federated import (SCHEMES, TABLE_I, FLRun,  # noqa: E402
                                    make_fleet, make_scheme, setup_clients)
-from test_torch_keys import jax_keys  # noqa: E402
+from test_torch_keys import jax_keys, share_jax_programs  # noqa: E402
 
 ATOL = 1e-5
 RUN_KW = dict(local_steps=2, batch_size=8, lr=0.05, seed=0, eval_batch=64)
@@ -82,6 +87,7 @@ def cohort_runs():
         jrun = JaxFLRun(jcfg, jh, "helios",
                         j_setup_clients(j_make_fleet(3, 3), parts, jh),
                         train, test, kernels=jkernels, **kw)
+        share_jax_programs(jrun)
         init = {k: np.asarray(v)
                 for k, v in jax.device_get(jrun.global_params).items()}
         jrun.run_sync(3)
@@ -154,6 +160,7 @@ def test_elastic_join_leave_matches_jax(white_box):
     jrun = JaxFLRun(jcfg, jh, "helios",
                     j_setup_clients(j_make_fleet(2, 2), parts[:4], jh),
                     train, test, **kw)
+    share_jax_programs(jrun)
     init = {k: np.asarray(v)
             for k, v in jax.device_get(jrun.global_params).items()}
     with jax_keys():

@@ -12,12 +12,16 @@ straggler masks, params within atol 1e-5.  ResNet-18 masks conv filters
 only, so neither run launches a masked kernel.
 """
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 import repro.configs as JC  # noqa: E402
@@ -33,7 +37,7 @@ from repro_torch.data.synthetic import class_gaussian_images  # noqa: E402
 from repro_torch.federated import FLRun, make_fleet, setup_clients  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.models import cnn as tcnn  # noqa: E402
-from test_torch_keys import jax_keys  # noqa: E402
+from test_torch_keys import jax_keys, share_jax_programs  # noqa: E402
 
 ATOL = 1e-5
 GRAD_RTOL = 1e-4
@@ -178,6 +182,7 @@ def runs():
         jrun = JaxFLRun(jcfg, jh, scheme,
                         j_setup_clients(j_make_fleet(2, 2), parts, jh),
                         train, test, **RUN_KW)
+        share_jax_programs(jrun)
         init = {k: np.asarray(v)
                 for k, v in jax.device_get(jrun.global_params).items()}
         jrun.run_sync(2)

@@ -24,11 +24,16 @@ the CPU).
   the sums (up to 600 f32 terms, added in another order) within 1e-6 of
   their size.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 import repro.configs as JC  # noqa: E402
@@ -45,7 +50,7 @@ from repro_torch.data.federated import partition_noniid  # noqa: E402
 from repro_torch.data.synthetic import class_gaussian_images  # noqa: E402
 from repro_torch.federated import (SCHEMES, AsyncFLRun, FLRun,  # noqa: E402
                                    make_fleet, make_scheme, setup_clients)
-from test_torch_keys import jax_keys  # noqa: E402
+from test_torch_keys import jax_keys, share_jax_programs  # noqa: E402
 
 ATOL = 1e-5
 RUN_KW = dict(local_steps=2, batch_size=8, lr=0.05, seed=0, eval_batch=64)
@@ -72,6 +77,8 @@ def _pair(jcls, tcls, scheme, setting):
     jrun = jcls(JC.reduced(JC.CNNS["alexnet"]), jh, scheme,
                 j_setup_clients(j_make_fleet(2, 2), parts, jh), train, test,
                 kernels="reference", **RUN_KW)
+    if jcls is JaxFLRun:
+        share_jax_programs(jrun)
     init = {k: np.asarray(v)
             for k, v in jax.device_get(jrun.global_params).items()}
     trun = tcls(TC.reduced(TC.ALEXNET), th, scheme,

@@ -27,6 +27,9 @@ import jax
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 import repro.configs as JC  # noqa: E402

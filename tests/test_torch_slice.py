@@ -14,10 +14,15 @@ bodies on the CPU.
 Expected: identical cycle/time/volumes/ratios history and accuracy,
 identical straggler masks, params within atol 1e-5.
 """
+import os
+
 import jax
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 import repro.configs as JC  # noqa: E402
@@ -31,7 +36,7 @@ from repro_torch.data.synthetic import class_gaussian_images  # noqa: E402
 from repro_torch.federated import FLRun, make_fleet, setup_clients  # noqa: E402
 from repro_torch.kernels import masked_matmul as tK  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
-from test_torch_keys import jax_keys  # noqa: E402
+from test_torch_keys import jax_keys, share_jax_programs  # noqa: E402
 
 ATOL = 1e-5
 SCHEMES = ("helios", "syn", "st_only", "random")
@@ -59,6 +64,7 @@ def runs(setting):
                         train, test,
                         kernels="pallas" if scheme == "helios" else
                         "reference", **RUN_KW)
+        share_jax_programs(jrun)
         init = {k: np.asarray(v)
                 for k, v in jax.device_get(jrun.global_params).items()}
         jrun.run_sync(2)

@@ -16,12 +16,16 @@ kernels pay for three.  The kernels themselves run only on the card
 (``chip_smoke.py``).
 """
 import ctypes
+import os
 import re
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+# idle OpenMP threads sleep rather than spin beside other test workers;
+# read when torch loads, and the thread count stays as it is
+os.environ.setdefault("OMP_WAIT_POLICY", "PASSIVE")
 torch = pytest.importorskip("torch")
 
 from repro.kernels import ref as jref  # noqa: E402
