@@ -155,7 +155,28 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    longest queue wait, swaps, publish / restore
    times and rates, the run log flushed and rendered with ``report``;
    ``ssd_diag`` at the serving prefill's shape against its plain
-   version and its bound.
+   version and its bound;
+4l. the training launch: xLSTM-125M at full size (103.6 M params, all 12
+   blocks) through ``repro_torch.launch.train.main`` at batch 8 x 128 for
+   6 steps with a checkpoint at step 3, again without checkpoints (the
+   card's run-to-run spread), then resumed from step 3: no kernel
+   launched, the resumed run's final state within twice the spread of
+   the uninterrupted one's (bit for bit when the card repeats itself);
+   InternVL2-1B at full width and all 24 layers (batch 8 x 256 stub image
+   embeddings + 256 tokens, volume 0.5, block-granular MLP masks) one
+   ``make_train_step`` step on ``kernels="cuda"`` held against the plain
+   path at 1e-4 (loss, gradient norm, params, AdamW's first moment and
+   the scores) with launches equal to 6 masked_matmul, 3
+   masked_matmul_dk and 1 flash_attention a layer, step walls in turns,
+   and one ``make_fl_round_step`` round of 2 clients x 1 step held the
+   same way; Qwen2.5-32B width with the depth cut 64 -> 2 (2.532 B
+   params) one held step, the kernel path's result on the host before
+   the plain path runs, and the peak memory; xLSTM-125M and InternVL2-1B
+   served through the serve CLI with no kernel launched and the last
+   decode step held against a re-prefill at max(1e-4, twice a nudged
+   twin's drift); the masked pair and flash at the new shapes against
+   their plain versions and timed beside their bounds, ``torch.matmul``
+   and SDPA.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and before that the
@@ -3213,7 +3234,7 @@ def _forced(srv, params, batch, toks, steps: int) -> tuple:
     one at a time: (prefill logits, [each step's logits])."""
     from repro_torch.launch import serve as SV
     logits, cache = srv.prefill(params, batch)
-    cache = SV.pad_cache(cache, SERVE_PROMPT + SERVE_GEN)
+    cache = SV.pad_cache(cache, cache["pos"] + SERVE_GEN)
     out = []
     for i in range(steps):
         lg, cache = srv.decode(params, toks[:, i:i + 1], cache)
@@ -3223,10 +3244,10 @@ def _forced(srv, params, batch, toks, steps: int) -> tuple:
 
 
 def _full_prefill(srv, params, batch, toks, steps: int) -> torch.Tensor:
-    """Last-position logits of one prefill over the prompt and the first
-    ``steps`` generated tokens."""
+    """Last-position logits of one prefill over the prompt (after a VLM's
+    image prefix) and the first ``steps`` generated tokens."""
     seq = torch.cat([batch["tokens"], toks[:, :steps]], dim=1)
-    return srv.prefill(params, {"tokens": seq})[0]
+    return srv.prefill(params, {**batch, "tokens": seq})[0]
 
 
 def _nudge(params, factor: float) -> None:
@@ -3310,7 +3331,8 @@ def _serve_readings(srv, params, batch, toks) -> dict:
     ev[0].record()
     logits, cache = srv.prefill(params, batch)
     ev[1].record()
-    cache = SV.pad_cache(cache, SERVE_PROMPT + SERVE_GEN)
+    p0 = cache["pos"]                 # the prompt, after a VLM's prefix
+    cache = SV.pad_cache(cache, p0 + SERVE_GEN)
     steps = SERVE_GEN - 1
     ev[2].record()
     for i in range(steps):
@@ -3326,16 +3348,16 @@ def _serve_readings(srv, params, batch, toks) -> dict:
             return sum(cache_bytes(v, pos) if k not in ("k", "v") else
                        v.element_size() * v.numel() // v.shape[-3]
                        * (pos + 1) for k, v in node.items() if k != "pos")
-        if isinstance(node, list):
+        if isinstance(node, (list, tuple)):
             return sum(cache_bytes(v, pos) for v in node)
         return node.numel() * node.element_size()
 
-    live = [cache_bytes(cache, SERVE_PROMPT + i) for i in range(steps)]
+    live = [cache_bytes(cache, p0 + i) for i in range(steps)]
     bound_ms = (p_bytes + sum(live) / steps) / PEAK_BYTES * 1e3
     # four decode steps under the profiler: device busy time, idle share
     # and the kernels a step launches
     from torch.profiler import ProfilerActivity, profile
-    cache["pos"] = SERVE_PROMPT
+    cache["pos"] = p0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3555,6 +3577,459 @@ def serve_phase(kernels: list) -> None:
     log(f"phase 4k took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 4l: the training launch
+# ---------------------------------------------------------------------------
+
+#: a masked MLP's kernel calls a layer and a step: the forward runs wi and
+#: wg on the column kernel and wo on the contraction kernel; the backward
+#: wo's dh and dw and wi's and wg's dw on the column kernel, wi's and wg's
+#: dx on the contraction kernel; flash once a layer (its backward
+#: recomputes the plain attention)
+LAUNCH_CALLS = {"masked_matmul": 6, "masked_matmul_dk": 3,
+                "flash_attention": 1, "ssd_diag": 0}
+#: xLSTM-125M through the train CLI: batch 8 x 128, volume 0.5, masks
+#: re-drawn every 2 steps, a checkpoint every 3 of 6 steps
+XL_STEPS, XL_EVERY = 6, 3
+XL_ARGS = ["--arch", "xlstm-125m", "--steps", str(XL_STEPS), "--batch", "8",
+           "--seq", "128", "--volume", "0.5", "--cycle-steps", "2",
+           "--ckpt-every", str(XL_EVERY), "--log-every", "1"]
+#: InternVL2-1B: batch 8 x (256 stub image embeddings + 256 tokens); the
+#: FL round: 2 clients x 1 local step of 4 such rows
+VLM_BATCH, VLM_TEXT, VLM_FL_BATCH = 8, 256, 4
+#: Qwen2.5-32B width, depth cut 64 -> 2, batch 4 x 512
+QW_LAYERS, QW_BATCH, QW_SEQ = 2, 4, 512
+#: the held steps' AdamW: the CLI's lr with no warmup, so the held step
+#: moves every param (the warmup schedule's lr is 0 at step 0)
+HOLD_TCFG = dict(learning_rate=3e-4, total_steps=10, warmup_steps=0)
+#: the serving cells of the launch's families, and the decode steps held
+#: against a re-prefill (xLSTM's chunkwise mLSTM takes lengths its chunk
+#: count divides: 512 + 24 = 8 x 67)
+LAUNCH_SERVE = {"xlstm-125m": 24, "internvl2-1b": SERVE_GEN - 1}
+
+
+def _expect(layers: int, steps: int) -> dict:
+    return {k: v * layers * steps for k, v in LAUNCH_CALLS.items()}
+
+
+def _tree_diff(a, b) -> float:
+    """Max abs difference over the tensor leaves of two trees."""
+    from repro_torch.models.module import tree_paths
+    tb = dict(tree_paths(b))
+    return max(float((v.detach().float() - tb[k].detach().float().to(
+        v.device)).abs().max()) for k, v in tree_paths(a)
+        if torch.is_tensor(v))
+
+
+def _hold_trees(what: str, kern, plain, rel: bool) -> float:
+    """Leaf by leaf: max abs difference of the kernel path's tree (host or
+    device) against the plain path's (``rel``: over the plain leaf's max
+    abs), a leaf at a time on the plain tree's device; returns the
+    worst."""
+    from repro_torch.models.module import tree_paths
+    tk = dict(tree_paths(kern))
+    worst, at = 0.0, None
+    for k, w in tree_paths(plain):
+        w = w.float()
+        d = float((tk[k].to(w.device).float() - w).abs().max())
+        if rel:
+            d /= max(float(w.abs().max()), 1e-30)
+        if not math.isfinite(d):
+            raise AssertionError(f"{what}: non-finite {k}")
+        if d > worst:
+            worst, at = d, k
+    log(f"  {what}: worst {'relative ' if rel else ''}max|diff| "
+        f"{worst:.3e} ({at})")
+    return worst
+
+
+def launch_xlstm() -> dict:
+    """xLSTM-125M at full size through ``launch.train.main``: uninterrupted
+    with a checkpoint at step ``XL_EVERY``, again without checkpoints (the
+    card's own run-to-run spread), then resumed from the first run's
+    mid-run checkpoint; the resumed run must end where the uninterrupted
+    one ends (within twice the spread: bit for bit on a card that repeats
+    itself).  The checkpoints (1.24 GB of state each) are deleted after."""
+    import shutil
+    from repro_torch.launch import train as TR
+    from repro_torch.models.module import tree_leaves
+    t0 = time.perf_counter()
+    base = ROOT / "chiprun_out" / "launch_xlstm"
+    shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    runs = {}
+    try:
+        for name in ("a", "again", "resumed"):
+            args = list(XL_ARGS)
+            if name == "resumed":
+                (base / name).mkdir(parents=True)
+                shutil.copy(base / "a" / f"ckpt_{XL_EVERY}.msgpack.zst",
+                            base / name)
+            if name != "again":
+                args += ["--ckpt-dir", str(base / name)]
+            rep = {}
+            _reset_all()
+            t1 = time.perf_counter()
+            losses = TR.main(args, report=rep)
+            rep.update(losses=losses, seconds=time.perf_counter() - t1,
+                       launches=_all_launches())
+            runs[name] = rep
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    a, again, res = runs["a"], runs["again"], runs["resumed"]
+    n_params = sum(v.numel() for v in tree_leaves(a["state"]["params"]))
+    spread = _tree_diff(TR._saved(a["state"]), TR._saved(again["state"]))
+    gap = _tree_diff(TR._saved(a["state"]), TR._saved(res["state"]))
+    out = {"params_m": n_params / 1e6, "losses": a["losses"],
+           "step_s": again["step_s"],
+           "run_s": {k: r["seconds"] for k, r in runs.items()},
+           "resumed_from": res["start"], "run_to_run": spread,
+           "resumed_vs_uninterrupted": gap,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "seconds": time.perf_counter() - t0}
+    log("launch xlstm-125m " + json.dumps(
+        out, default=lambda v: round(v, 6) if isinstance(v, float) else v))
+    zero = {k: 0 for k in LAUNCH_CALLS}
+    for name, rep in runs.items():
+        if rep["launches"] != zero:
+            raise AssertionError(f"launch xlstm {name}: launches "
+                                 f"{rep['launches']}, want none (xLSTM "
+                                 f"reaches no kernel)")
+    if not all(math.isfinite(x) for x in a["losses"] + res["losses"]):
+        raise AssertionError("launch xlstm: non-finite loss")
+    if res["start"] != XL_EVERY or len(res["losses"]) != XL_STEPS - XL_EVERY:
+        raise AssertionError(f"launch xlstm: resumed at {res['start']} with "
+                             f"{len(res['losses'])} steps")
+    if res["state"]["helios"]["rng"] != a["state"]["helios"]["rng"]:
+        raise AssertionError("launch xlstm: resumed Helios key path differs")
+    if not gap <= 2 * spread:
+        raise AssertionError(f"launch xlstm: resumed run ends {gap} from the "
+                             f"uninterrupted one (run to run {spread})")
+    del runs, a, again, res
+    return out
+
+
+def _launch_setting(cfg, batch: int, text: int, g):
+    """A launch train state on the card (params from seed 0, AdamW, Helios
+    at volume 0.5 with block-granular MLP masks) and one batch of Markov
+    tokens (and a VLM's stub image embeddings)."""
+    from repro_torch.configs import HeliosConfig, TrainConfig
+    from repro_torch.core import soft_train as ST
+    from repro_torch.data.synthetic import markov_tokens
+    from repro_torch.launch import steps as S
+    hcfg = HeliosConfig(contribution="grad_ema", mask_block=BLOCK)
+    tcfg = TrainConfig(**HOLD_TCFG)
+    t0 = time.perf_counter()
+    state = S.init_train_state(0, cfg, hcfg, tcfg, "cuda")
+    state["helios"] = ST.begin_cycle(ST.set_volume(state["helios"], 0.5),
+                                     hcfg)
+    b = {"tokens": torch.as_tensor(markov_tokens(batch, text, cfg.padded_vocab),
+                                   device="cuda")}
+    if cfg.family == "vlm":
+        b["image_embeds"] = torch.randn(batch, cfg.num_image_tokens,
+                                        cfg.d_model, device="cuda",
+                                        generator=g)
+    log(f"launch {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads over {cfg.num_kv_heads} x "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}; state ready in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return hcfg, tcfg, state, b
+
+
+def _rt(kernels: str) -> dict:
+    from repro_torch.models import default_runtime
+    rt = default_runtime()
+    rt["kernels"], rt["mask_block"] = kernels, BLOCK
+    return rt
+
+
+def _hold_step(cfg, hcfg, tcfg, state, batch, host: bool) -> dict:
+    """One ``make_train_step`` step from ``state`` on each path, the
+    kernels' counters zeroed before and read after each; the kernel path
+    held to the plain path at 1e-4: loss and gradient norm (relative), the
+    new params (absolute), AdamW's first moment and the Eq. 1 scores (per
+    leaf, relative: the clipped gradients).  ``host``: the kernel path's
+    result goes to the host before the plain path runs."""
+    from repro_torch.launch import steps as S
+    from repro_torch.models.module import tree_map
+    res = {}
+    for kernels in ("cuda", "reference"):
+        step = S.make_train_step(cfg, hcfg, tcfg, _rt(kernels))
+        _reset_all()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, met = step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _all_launches()
+        kept = {"params": new["params"], "m": new["opt"]["m"],
+                "scores": new["helios"]["scores"]}
+        if host and kernels == "cuda":
+            kept = tree_map(lambda t: t.cpu(), kept)
+        res[kernels] = {"loss": float(met["loss"]),
+                        "grad_norm": float(met["grad_norm"]),
+                        "launches": launches, "step_s": wall, **kept}
+        del new, met, kept
+        _free()
+    k, p = res["cuda"], res["reference"]
+    log(f"launch {cfg.name} one step: loss {k['loss']:.7f} vs {p['loss']:.7f},"
+        f" grad norm {k['grad_norm']:.6f} vs {p['grad_norm']:.6f}; step "
+        f"{k['step_s']:.3f} s vs {p['step_s']:.3f} s (first calls); "
+        f"launches {json.dumps(k['launches'])}")
+    worst = {"params": _hold_trees(f"{cfg.name} params", k["params"],
+                                   p["params"], rel=False),
+             "m": _hold_trees(f"{cfg.name} AdamW m", k["m"], p["m"],
+                              rel=True),
+             "scores": _hold_trees(f"{cfg.name} scores", k["scores"],
+                                   p["scores"], rel=True)}
+    for what in ("loss", "grad_norm"):
+        worst[what] = abs(k[what] - p[what]) / max(abs(p[what]), 1e-30)
+    if not all(v <= F32_TOL for v in worst.values()):
+        raise AssertionError(f"launch {cfg.name}: the kernel path's step "
+                             f"disagrees with the plain path: {worst}")
+    want = _expect(cfg.num_layers, 1)
+    if k["launches"] != want or any(p["launches"].values()):
+        raise AssertionError(f"launch {cfg.name}: launches {k['launches']} "
+                             f"(plain {p['launches']}), want {want}")
+    return {"hold": worst, "launches": k["launches"],
+            "step_s": {"cuda": k["step_s"], "reference": p["step_s"]}}
+
+
+def _step_walls(cfg, hcfg, tcfg, state, batch) -> dict:
+    """Step walls after the held step's warm-up, in turns: kernel, plain,
+    plain, kernel (host clock to a synchronize)."""
+    from repro_torch.launch import steps as S
+    walls = {"cuda": [], "reference": []}
+    for kernels in ("cuda", "reference", "reference", "cuda"):
+        step = S.make_train_step(cfg, hcfg, tcfg, _rt(kernels))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, _ = step(state, batch)
+        torch.cuda.synchronize()
+        walls[kernels].append(time.perf_counter() - t0)
+        del new
+    _free()
+    return walls
+
+
+def launch_vlm(g) -> dict:
+    """InternVL2-1B at full width and depth: one held step, step walls in
+    turns, and one ``make_fl_round_step`` round of 2 clients x 1 local
+    step held kernel path against plain path."""
+    from repro_torch.configs import INTERNVL2_1B
+    from repro_torch.core import soft_train as ST
+    from repro_torch.launch import steps as S
+    from repro_torch.models import build
+    from repro_torch.models.module import tree_leaves, tree_map
+    cfg = INTERNVL2_1B
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    hcfg, tcfg, state, batch = _launch_setting(cfg, VLM_BATCH, VLM_TEXT, g)
+    n_params = sum(v.numel() for v in tree_leaves(state["params"]))
+    out = {"params_b": n_params / 1e9, "tokens": VLM_BATCH * (
+        VLM_TEXT + cfg.num_image_tokens)}
+    out.update(_hold_step(cfg, hcfg, tcfg, state, batch, host=False))
+    out["walls"] = _step_walls(cfg, hcfg, tcfg, state, batch)
+    out["step_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    # the fused FL round: clients at volumes 0.5 and 1
+    n = 2
+    schema = build(cfg).mask_schema
+    helios = ST.stack_states([ST.begin_cycle(ST.set_volume(ST.init_state(
+        schema, 1.0, c, "cuda"), v), hcfg) for c, v in enumerate((0.5, 1.0))])
+    fl_state = {"params": S.stack_clients(state["params"], n),
+                "opt": S.stack_clients(state["opt"], n),
+                "step": state["step"], "helios": helios}
+    del state
+    _free()
+    fl_batch = {k: v[:VLM_FL_BATCH * n].reshape(
+        (n, 1, VLM_FL_BATCH) + tuple(v.shape[1:])) for k, v in batch.items()}
+    res = {}
+    for kernels in ("cuda", "reference"):
+        rnd = S.make_fl_round_step(cfg, hcfg, tcfg, _rt(kernels), n)
+        _reset_all()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new, met = rnd(fl_state, fl_batch)
+        torch.cuda.synchronize()
+        res[kernels] = {"wall": time.perf_counter() - t0,
+                        "launches": _all_launches(),
+                        "loss": float(met["loss"]),
+                        "alpha": met["alpha"].tolist(),
+                        "global": tree_map(lambda t: t[0].cpu(),
+                                           new["params"])}
+        del new, met
+        _free()
+    k, p = res["cuda"], res["reference"]
+    log(f"launch {cfg.name} FL round (2 clients x 1 step): loss "
+        f"{k['loss']:.7f} vs {p['loss']:.7f}, alpha {k['alpha']} vs "
+        f"{p['alpha']}, wall {k['wall']:.3f} s vs {p['wall']:.3f} s; "
+        f"launches {json.dumps(k['launches'])}")
+    fl_worst = _hold_trees(f"{cfg.name} FL global", k["global"], p["global"],
+                           rel=False)
+    want = _expect(cfg.num_layers, n)
+    if not (fl_worst <= F32_TOL and k["alpha"] == p["alpha"]
+            and abs(k["loss"] - p["loss"]) <= F32_TOL * abs(p["loss"])):
+        raise AssertionError(f"launch {cfg.name} FL round: kernel path "
+                             f"disagrees with plain ({fl_worst})")
+    if k["launches"] != want or any(p["launches"].values()):
+        raise AssertionError(f"launch {cfg.name} FL round launches "
+                             f"{k['launches']}, want {want}")
+    out.update(fl_hold=fl_worst, fl_launches=k["launches"],
+               fl_wall={"cuda": k["wall"], "reference": p["wall"]},
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               seconds=time.perf_counter() - t0)
+    log(f"launch {cfg.name}: step peak {out['step_peak_gib']:.2f} GiB, "
+        f"with the FL round {out['peak_gib']:.2f} GiB")
+    del fl_state, res, batch, fl_batch
+    _free()
+    return out
+
+
+def launch_qwen(g) -> dict:
+    """Qwen2.5-32B width with the depth cut 64 -> 2: one held step, the
+    kernel path's result on the host before the plain path runs."""
+    from repro_torch.configs import QWEN2_5_32B
+    from repro_torch.models.module import tree_leaves
+    cfg = dataclasses.replace(QWEN2_5_32B, num_layers=QW_LAYERS)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    hcfg, tcfg, state, batch = _launch_setting(cfg, QW_BATCH, QW_SEQ, g)
+    n_params = sum(v.numel() for v in tree_leaves(state["params"]))
+    out = {"params_b": n_params / 1e9, "tokens": QW_BATCH * QW_SEQ}
+    out.update(_hold_step(cfg, hcfg, tcfg, state, batch, host=True))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["seconds"] = time.perf_counter() - t0
+    log(f"launch {cfg.name} ({QW_LAYERS} of {QWEN2_5_32B.num_layers} layers,"
+        f" {out['params_b']:.4f} B params): peak {out['peak_gib']:.2f} GiB; "
+        f"{out['seconds']:.1f} s")
+    del state, batch
+    _free()
+    return out
+
+
+def launch_serving() -> dict:
+    """xLSTM-125M and InternVL2-1B (the image prefix in the cache) served
+    through the serve CLI at the 4k cell: no kernel launched; the last
+    decode step held against one prefill over the same sequence at
+    max(1e-4, twice a 2^-23-nudged twin's drift)."""
+    out = {}
+    for arch, steps in LAUNCH_SERVE.items():
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rep = _serve_cli(arch, "cuda")
+        cfg, params, batch = rep["cfg"], rep["params"], rep["batch"]
+        toks, srv = rep["tokens"], rep["server"]
+        if any(rep["launches"].values()):
+            raise AssertionError(f"serve {arch} launches {rep['launches']}")
+        _, dec = _forced(srv, params, batch, toks, steps)
+        full = _full_prefill(srv, params, batch, toks, steps)
+        consistency = _max_diff(dec[-1], full)
+        readings = _serve_readings(srv, params, batch, toks)
+        _nudge(params, 1.0 + 2.0 ** -23)
+        drift = _max_diff(_full_prefill(srv, params, batch, toks, steps),
+                          full)
+        gate = max(F32_TOL, 2 * drift)
+        pos = SERVE_PROMPT + cfg.num_image_tokens + steps
+        out[arch] = {"consistency": consistency, "drift": drift,
+                     "gate": gate, "positions": pos, **readings,
+                     "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                     "seconds": time.perf_counter() - t0}
+        log(f"serve {arch}: last decode step against one prefill over the "
+            f"same {pos} positions {consistency:.3e}; nudged drift "
+            f"{drift:.3e}; gate {gate:.3e}; prefill "
+            f"{readings['prefill_ms']:.3f} ms, decode "
+            f"{readings['decode_ms_per_token']:.4f} ms a step (bound "
+            f"{readings['decode_bound_ms']:.4f} ms); peak "
+            f"{out[arch]['peak_gib']:.2f} GiB")
+        if not (consistency <= gate and all(
+                bool(torch.isfinite(x).all()) for x in dec + [full])):
+            raise AssertionError(f"serve {arch}: decode disagrees with a "
+                                 f"re-prefill: {consistency} > {gate}")
+        del rep, params, batch, srv, dec, full
+        _free()
+    return out
+
+
+def launch_kernels(g) -> tuple:
+    """The masked pair and flash at the launch's shapes: each against its
+    plain version (f32, twice, bit-identical), then timed beside its bound
+    and ``torch.matmul`` / SDPA.  Returns {kernel: {shape label: times}}
+    and the worst f32 errors."""
+    from repro_torch.configs import INTERNVL2_1B, QWEN2_5_32B
+    worst = {"masked_matmul": 0.0, "masked_matmul_dk": 0.0,
+             "flash_attention": 0.0}
+    times = {k: {} for k in worst}
+    for name, cfg, m in (("internvl2-1b", INTERNVL2_1B,
+                          VLM_BATCH * (VLM_TEXT + 256)),
+                         ("qwen2.5-32b", QWEN2_5_32B, QW_BATCH * QW_SEQ)):
+        d, ff = cfg.d_model, cfg.d_ff
+        layouts = (("wi/wg fwd", "masked_matmul", m, d, ff, "row", "row"),
+                   ("wi/wg dw", "masked_matmul", d, m, ff, "col", "row"),
+                   ("wo dh", "masked_matmul", m, d, ff, "row", "col"),
+                   ("wo fwd", "masked_matmul_dk", m, ff, d, "row", "row"),
+                   ("wi/wg dx", "masked_matmul_dk", m, ff, d, "row", "col"))
+        for label, kernel, mm, k, n, xl, wl in layouts:
+            fn, plain, x, w, live, dead = _operands(kernel, mm, k, n, xl, wl,
+                                                    0.5, torch.float32, g)
+            err, config = _check_call(f"{name} {label} M={mm} K={k} N={n} "
+                                      f"P=0.5", fn, plain, x, w, live, dead,
+                                      BLOCK, torch.float32)
+            worst[kernel] = max(worst[kernel], err)
+            del x, w, dead
+            if label in ("wi/wg fwd", "wo fwd"):
+                t = _time_call(f"{name} {label}", kernel, mm, k, n, xl, wl,
+                               0.5, g, 1)
+                times[kernel][name] = {"shape": [mm, k, n], "config": config,
+                                       **t}
+            _free()
+        shape = (VLM_BATCH if name == "internvl2-1b" else QW_BATCH,
+                 cfg.num_heads, 512, cfg.resolved_head_dim, True)
+        err = _check_flash_case(*shape, torch.float32, g)
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        t, bd, flops = _flash_times(*shape, seed=31)
+        _flash_line(shape, t, bd, flops, cfg.num_layers)
+        times["flash_attention"][name] = {
+            "shape": list(shape[:4]), **t, "bound_ms": bd["bound_ms"],
+            "bound_by": bd["bound_by"], "bound_f32_ms": bd["bound_f32_ms"]}
+        _free()
+    _reset_all()
+    return times, worst
+
+
+def launch_phase(kernels: list) -> None:
+    """Phase 4l; adds the launch paths' launches, its shapes' times and
+    errors to the rows of ``kernels``."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(41)
+    xl = launch_xlstm()
+    _free()
+    vlm = launch_vlm(g)
+    qwen = launch_qwen(g)
+    serving = launch_serving()
+    t1 = time.perf_counter()
+    times, worst = launch_kernels(g)
+    log(f"launch kernel checks and times took {time.perf_counter() - t1:.1f}"
+        f" s")
+    for row in kernels:
+        name = row["name"]
+        if name not in times:
+            continue
+        paths = {"launch_internvl2_step": vlm["launches"][name],
+                 "launch_internvl2_fl_round": vlm["fl_launches"][name],
+                 "launch_qwen2.5_step": qwen["launches"][name]}
+        row.setdefault("launches_by_path", {})
+        row["launches_by_path"].update(paths)
+        row["launches"] += sum(paths.values())
+        row["launch"] = {"shapes": times[name],
+                         "max_abs_err": worst[name]}
+    log("launch summary " + json.dumps(
+        {"xlstm": xl, "internvl2-1b": vlm, "qwen2.5-32b": qwen,
+         "serving": serving},
+        default=lambda v: round(v, 6) if isinstance(v, float) else str(v)))
+    log(f"phase 4l took {time.perf_counter() - t0:.1f} s")
+
+
+
 def _device_us(e) -> float:
     """Self device time of a profiler row (the attribute was renamed)."""
     t = getattr(e, "self_device_time_total", None)
@@ -3639,6 +4114,9 @@ def main() -> int:
     _free()
 
     serve_phase(kernels)
+    _free()
+
+    launch_phase(kernels)
 
     log(f"chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))

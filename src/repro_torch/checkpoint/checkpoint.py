@@ -12,6 +12,14 @@ items of a list or tuple, ``<empty>`` for an empty one) to
 :mod:`repro_torch.checkpoint.wire` (no ``msgpack`` package needed);
 ``zstandard`` compresses when it imports (looked up at the first
 checkpoint, never when this module is imported), else ``zlib`` at level 6.
+The zlib body is one standard stream whose deflate blocks are made chunk
+by chunk on host threads (each chunk ends on a sync flush, the last on
+the final block, and the stream's adler32 covers the whole payload, as
+``pigz`` writes it), so any zlib reader reads it and a large snapshot
+compresses at several cores' rate rather than one core's.  While another
+Python thread runs beside the saving one (the serve-while-train publish:
+one thread trains and publishes, one serves), the deflate takes half the
+cores, so the serving thread keeps cores of its own.
 
 A write goes to a ``.tmp`` file, is flushed and fsynced, then
 ``os.replace``-d into place (atomic on POSIX), so a reader never sees a
@@ -25,7 +33,10 @@ import functools
 import json
 import os
 import re
+import struct
+import threading
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional
 
 import numpy as np
@@ -42,6 +53,11 @@ _CODEC_ZSTD = b"z"
 _CODEC_ZLIB = b"d"
 #: decompression cap (a corrupt or hostile file cannot exhaust memory)
 _MAX_PAYLOAD = 1 << 34
+#: the zlib body is deflated in chunks of this many bytes, on up to
+#: ``_ZLIB_THREADS`` host threads (zlib releases the GIL while it works)
+_ZLIB_CHUNK = 16 << 20
+_ZLIB_THREADS = 8
+_ZLIB_LEVEL = 6
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,12 +75,45 @@ def codec_name() -> str:
     return "zlib" if _zstd() is None else "zstd"
 
 
+def _deflate(chunk, last: bool) -> bytes:
+    """Raw deflate blocks of one chunk: a sync flush ends all but the last
+    chunk, whose final block closes the stream."""
+    c = zlib.compressobj(_ZLIB_LEVEL, zlib.DEFLATED, -zlib.MAX_WBITS)
+    return c.compress(chunk) + c.flush(zlib.Z_FINISH if last
+                                       else zlib.Z_SYNC_FLUSH)
+
+
+def zlib_threads() -> int:
+    """The deflate threads of one save: the cores this process may run on,
+    at most ``_ZLIB_THREADS``, and half of them while another Python thread
+    is alive (one that serves requests keeps cores of its own)."""
+    cores = len(os.sched_getaffinity(0)) if hasattr(os, "sched_getaffinity") \
+        else (os.cpu_count() or 1)
+    if threading.active_count() > 1:
+        cores //= 2
+    return max(1, min(_ZLIB_THREADS, cores))
+
+
+def _zlib_stream(payload: bytes) -> bytes:
+    """One zlib stream of ``payload`` at level 6, deflated chunk by chunk
+    on host threads: the header, the chunks' blocks in order, the adler32
+    of the whole payload."""
+    view = memoryview(payload)
+    starts = range(0, max(len(view), 1), _ZLIB_CHUNK)
+    chunks = [view[i:i + _ZLIB_CHUNK] for i in starts]
+    last = [i == len(chunks) - 1 for i in range(len(chunks))]
+    threads = min(zlib_threads(), len(chunks))
+    with ThreadPoolExecutor(threads) as pool:
+        body = b"".join(pool.map(_deflate, chunks, last))
+    return b"\x78\x9c" + body + struct.pack(">I", zlib.adler32(payload))
+
+
 def _compress(payload: bytes) -> bytes:
     zstandard = _zstd()
     if zstandard is not None:
         return _MAGIC + _CODEC_ZSTD + \
             zstandard.ZstdCompressor(level=3).compress(payload)
-    return _MAGIC + _CODEC_ZLIB + zlib.compress(payload, 6)
+    return _MAGIC + _CODEC_ZLIB + _zlib_stream(payload)
 
 
 def _decompress(blob: bytes) -> bytes:

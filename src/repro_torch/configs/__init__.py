@@ -1,19 +1,31 @@
-"""Config registry of the port: the paper CNNs, the dense LM, the MoE LM,
-the hybrid, their reduced test sizes, and the name lookup the CLIs use."""
+"""Config registry of the port: the paper CNNs, the dense LMs (DeepSeek and
+the three QKV-bias Qwen configs), the MoE LM, the hybrid, xLSTM, the VLM,
+their reduced test sizes, and the name lookup the CLIs use."""
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs import deepseek_7b, granite_moe_1b_a400m, zamba2_1_2b
-from repro_torch.configs.base import HeliosConfig, ModelConfig
+from repro_torch.configs import (codeqwen1_5_7b, deepseek_7b,
+                                 granite_moe_1b_a400m, internvl2_1b,
+                                 qwen1_5_32b, qwen2_5_32b, xlstm_125m,
+                                 zamba2_1_2b)
+from repro_torch.configs.base import HeliosConfig, ModelConfig, TrainConfig
 from repro_torch.configs.paper_cnns import ALEXNET, CNNS, LENET, RESNET18
 
 DEEPSEEK_7B = deepseek_7b.CONFIG
 GRANITE_MOE_1B_A400M = granite_moe_1b_a400m.CONFIG
 ZAMBA2_1_2B = zamba2_1_2b.CONFIG
+QWEN1_5_32B = qwen1_5_32b.CONFIG
+QWEN2_5_32B = qwen2_5_32b.CONFIG
+CODEQWEN1_5_7B = codeqwen1_5_7b.CONFIG
+XLSTM_125M = xlstm_125m.CONFIG
+INTERNVL2_1B = internvl2_1b.CONFIG
 
-#: the ported LM configs by name (the reference's ``ARCHS``, restricted)
-ARCHS = {c.name: c for c in (DEEPSEEK_7B, GRANITE_MOE_1B_A400M, ZAMBA2_1_2B)}
+#: the ported LM configs by name (the reference's ``ARCHS`` in its order,
+#: without DeepSeek-V2's MLA and SeamlessM4T's encdec)
+ARCHS = {c.name: c for c in (GRANITE_MOE_1B_A400M, DEEPSEEK_7B, QWEN1_5_32B,
+                             QWEN2_5_32B, CODEQWEN1_5_7B, ZAMBA2_1_2B,
+                             XLSTM_125M, INTERNVL2_1B)}
 ALL_MODELS = {**ARCHS, **CNNS}
 
 
@@ -29,28 +41,34 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     """Reduced config of the same family for CPU tests.
 
     CNN: channels / 8 (at least 4), images at most 16 pixels; the dense
-    widths (fc0/fc1) stay full.  Dense LM: 4 layers, d_model 64, 4 heads of
-    16 at the same GQA ratio, d_ff 96, vocab 256 (the reference's sizes).
-    MoE: the same, with 8 experts, top-min(2, k), expert width 32 and one
-    leading dense layer where the config has any.  Hybrid: the same, with
-    the shared block every 2 layers and Mamba2 heads of 16, state 16,
-    chunk 32.
+    widths (fc0/fc1) stay full.  Token LMs: 4 layers, d_model 64, 4 heads
+    of 16 (3 where the head count is odd) at the same GQA ratio, d_ff 96,
+    vocab 256 (the reference's sizes).  MoE: the same, with 8 experts,
+    top-min(2, k), expert width 32 and one leading dense layer where the
+    config has any.  Hybrid and xLSTM: Mamba2 heads of 16, state 16, chunk
+    32; the hybrid's shared block every 2 layers, xLSTM's one sLSTM block
+    at index 1.  VLM: 8 image tokens.
     """
     if cfg.family == "cnn":
         return dataclasses.replace(
             cfg, cnn_channels=tuple(max(4, c // 8) for c in cfg.cnn_channels),
             image_size=min(cfg.image_size, 16))
-    if cfg.family not in ("dense", "moe", "hybrid") or cfg.use_mla:
+    if cfg.use_mla:
         raise ValueError(
-            f"reduced: the port has CNN, dense, MoE and hybrid configs, got "
-            f"family {cfg.family!r} (use_mla={cfg.use_mla}); MLA and VLM wait"
-            f" (ROADMAP.md, modules to port, item 9), xlstm and encdec too "
-            f"(item 15)")
+            "reduced: MLA (DeepSeek-V2) is not ported; see ROADMAP.md, "
+            "modules to port, item 9")
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm", "vlm"):
+        raise ValueError(
+            f"reduced: the port has CNN, dense, MoE, hybrid, ssm and vlm "
+            f"configs, got family {cfg.family!r}; encdec (SeamlessM4T) "
+            f"waits (ROADMAP.md, modules to port, item 15)")
     kv_ratio = max(1, cfg.num_heads // max(1, cfg.num_kv_heads))
     heads = 4 if cfg.num_heads % 2 == 0 else 3   # keep odd-head quirk
     kv = max(1, heads // min(kv_ratio, heads))
     upd = dict(d_model=64, num_heads=heads, num_kv_heads=kv, head_dim=16,
                d_ff=96 if cfg.d_ff else 0, vocab_size=256, num_layers=4)
+    if cfg.slstm_layers:
+        upd["slstm_layers"] = (1,)           # one sLSTM in the reduced stack
     if cfg.attn_every:
         upd["attn_every"] = 2
     if cfg.first_k_dense:
@@ -59,11 +77,15 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
         upd.update(num_experts=8,
                    num_experts_per_tok=min(2, cfg.num_experts_per_tok),
                    moe_d_ff=32)
-    if cfg.family == "hybrid":
+    if cfg.family in ("hybrid", "ssm"):
         upd.update(ssm_state=16, ssm_head_dim=16, ssm_chunk=32)
+    if cfg.num_image_tokens:
+        upd["num_image_tokens"] = 8
     return dataclasses.replace(cfg, **upd)
 
 
-__all__ = ["ALEXNET", "ALL_MODELS", "ARCHS", "CNNS", "DEEPSEEK_7B",
-           "GRANITE_MOE_1B_A400M", "LENET", "RESNET18", "ZAMBA2_1_2B",
-           "HeliosConfig", "ModelConfig", "get_model_config", "reduced"]
+__all__ = ["ALEXNET", "ALL_MODELS", "ARCHS", "CNNS", "CODEQWEN1_5_7B",
+           "DEEPSEEK_7B", "GRANITE_MOE_1B_A400M", "INTERNVL2_1B", "LENET",
+           "QWEN1_5_32B", "QWEN2_5_32B", "RESNET18", "XLSTM_125M",
+           "ZAMBA2_1_2B", "HeliosConfig", "ModelConfig", "TrainConfig",
+           "get_model_config", "reduced"]

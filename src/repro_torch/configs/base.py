@@ -2,11 +2,19 @@
 """Configuration dataclasses for the PyTorch port (the fields its slices read).
 
 * :class:`ModelConfig`  — architecture of a paper-testbed CNN, a dense or
-  MoE LM, or the Mamba2 + shared-attention hybrid.
+  MoE LM, the Mamba2 + shared-attention hybrid, the xLSTM stack or the VLM
+  (a dense LM behind a stub image prefix).
 * :class:`HeliosConfig` — the paper's soft-training knobs (Sections IV-VI).
+* :class:`TrainConfig`  — the training launch's optimizer, precision and
+  microbatching.
 
-Frozen dataclasses, field for field the same names and defaults as the JAX
-package's configs, so a configuration carries over by name.
+Frozen dataclasses with the JAX package's names and defaults for the fields
+the port reads, so a configuration carries over by name.  The reference's
+``scan_layers`` (a ``lax.scan`` over stacked layers or an unrolled loop:
+the same arithmetic) and ``TrainConfig``'s ``local_steps``,
+``compress_topk`` and ``seed`` (read by nothing in either launch) are left
+out: the port loops over the layers, and the train CLI takes its seed from
+``--seed``.
 """
 from __future__ import annotations
 
@@ -20,8 +28,8 @@ def _round_up(x: int, m: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Architecture description; ``family`` is ``cnn``, ``dense``, ``moe``
-    or ``hybrid``.
+    """Architecture description; ``family`` is ``cnn``, ``dense``, ``moe``,
+    ``hybrid``, ``ssm`` (xLSTM) or ``vlm``.
 
     The LM sizes have no default in the reference; here they default to 0
     so the CNN configs need not name them."""
@@ -59,6 +67,12 @@ class ModelConfig:
     ssm_chunk: int = 256
     attn_every: int = 0                    # hybrid: shared attn block period
 
+    # ---- xLSTM ----
+    slstm_layers: Tuple[int, ...] = ()     # indices that are sLSTM (rest mLSTM)
+
+    # ---- VLM ----
+    num_image_tokens: int = 0              # stub frontend: precomputed patch embeds
+
     # ---- CNN (paper testbed) ----
     image_size: int = 0
     in_channels: int = 0
@@ -95,3 +109,21 @@ class HeliosConfig:
     adapt_volume: bool = True
     adapt_gain: float = 0.5
     min_volume: float = 0.125
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The training launch's knobs (the reference's defaults)."""
+
+    optimizer: str = "adamw"
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    microbatches: int = 1                  # gradient accumulation

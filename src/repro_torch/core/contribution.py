@@ -59,35 +59,46 @@ def unit_scores(delta_tree, axes_tree, schema: Dict[str, tuple],
     params = dict(tree_paths(delta_tree))
     axes = dict(tree_paths(axes_tree, is_leaf=lambda x: isinstance(x, tuple)))
     dev = next(iter(params.values())).device
-    out = {}
+    out = {key: torch.zeros(shape, dtype=torch.float32, device=dev)
+           for key, shape in schema.items()}
+    for path, arr in params.items():
+        for key, r in leaf_unit_scores(path, arr, axes.get(path), schema,
+                                       key_prefixes):
+            out[key] = out[key] + r
+    return out
+
+
+def leaf_unit_scores(path: str, arr: torch.Tensor, ax: Optional[tuple],
+                     schema: Dict[str, tuple],
+                     key_prefixes: Optional[Dict[str, str]] = None):
+    """(schema key, its (layers, units) share) for each key of ``schema``
+    that the leaf at ``path`` (logical axes ``ax``) scores into; a key's
+    :func:`unit_scores` entry is zero plus its shares in tree order."""
+    if ax is None:
+        return
     for key, shape in schema.items():
         if ":" in key:
             prefix, axis_key = key.split(":", 1)
         else:
             prefix, axis_key = (key_prefixes or {}).get(key), key
         unit_axis = UNIT_AXES.get(axis_key, "filters")
-        acc = torch.zeros(shape, dtype=torch.float32, device=dev)
-        for path, arr in params.items():
-            ax = axes.get(path)
-            if ax is None or unit_axis not in ax:
-                continue
-            if prefix is not None and f"/{prefix}/" not in f"/{path}/":
-                continue
-            if axis_key.startswith("enc_") and "enc_" not in path:
-                continue
-            if not axis_key.startswith("enc_") and prefix is None and \
-                    axis_key in ("heads", "mlp") and path.startswith("enc_"):
-                continue
-            if axis_key == "cross_heads" and "/cross/" not in f"/{path}/":
-                continue
-            if axis_key == "heads" and "cross" in path:
-                continue
-            r = _reduce_to_units(arr, ax, unit_axis, layered=True)
-            if r is None or tuple(r.shape) != tuple(shape):
-                continue
-            acc = acc + r
-        out[key] = acc
-    return out
+        if unit_axis not in ax:
+            continue
+        if prefix is not None and f"/{prefix}/" not in f"/{path}/":
+            continue
+        if axis_key.startswith("enc_") and "enc_" not in path:
+            continue
+        if not axis_key.startswith("enc_") and prefix is None and \
+                axis_key in ("heads", "mlp") and path.startswith("enc_"):
+            continue
+        if axis_key == "cross_heads" and "/cross/" not in f"/{path}/":
+            continue
+        if axis_key == "heads" and "cross" in path:
+            continue
+        r = _reduce_to_units(arr, ax, unit_axis, layered=True)
+        if r is None or tuple(r.shape) != tuple(shape):
+            continue
+        yield key, r
 
 
 def cnn_unit_scores(delta_tree: Dict[str, torch.Tensor],
@@ -100,11 +111,25 @@ def cnn_unit_scores(delta_tree: Dict[str, torch.Tensor],
         dev = next(iter(delta_tree.values())).device
         acc = torch.zeros(shape[-1], dtype=torch.float32, device=dev)
         if w is not None:
-            acc = acc + w.float().abs().sum(dim=tuple(range(w.dim() - 1)))
+            acc = acc + _cnn_share(w)
         if b is not None:
-            acc = acc + b.float().abs()
+            acc = acc + _cnn_share(b)
         out[key] = acc[None]                              # (1, units)
     return out
+
+
+def _cnn_share(arr: torch.Tensor) -> torch.Tensor:
+    """|arr| summed over every dim but the last (the unit dim)."""
+    out = arr.float().abs()
+    return out.sum(dim=tuple(range(arr.dim() - 1))) if arr.dim() > 1 else out
+
+
+def cnn_leaf_scores(path: str, arr: torch.Tensor, schema: Dict[str, tuple]):
+    """(schema key, its (1, units) share) of the CNN leaf at ``path``
+    (``<key>_w`` or ``<key>_b``), as :func:`cnn_unit_scores` sums it."""
+    for key in schema:
+        if path in (f"{key}_w", f"{key}_b"):
+            yield key, _cnn_share(arr)[None]
 
 
 def delta(params_new, params_old):

@@ -40,37 +40,48 @@ def _match(key: str, path: str, axes: tuple) -> Optional[str]:
     return unit_axis
 
 
+def axes_by_path(axes_tree) -> Dict[str, tuple]:
+    """{'a/b/c': logical axes} of a spec's axes tree."""
+    return dict(tree_paths(axes_tree, is_leaf=lambda x: isinstance(x, tuple)))
+
+
+def expand_mask_leaf(ax: Optional[tuple], unit_masks: Dict[str, torch.Tensor],
+                     path: str, arr: torch.Tensor) -> torch.Tensor:
+    """The 0/1 mask of one parameter (``path``, logical axes ``ax``): the
+    outer product of every unit mask that applies to it, ones if none."""
+    m = torch.ones(arr.shape, dtype=torch.float32, device=arr.device)
+    if ax is None:
+        return m
+    layered = bool(ax) and ax[0] == "layers"
+    for key, um in unit_masks.items():
+        unit_axis = _match(key, path, ax)
+        if unit_axis is None:
+            continue
+        dim = ax.index(unit_axis)
+        n_layers, n_units = um.shape
+        if arr.shape[dim] != n_units:
+            continue
+        if layered and arr.shape[0] != n_layers:
+            continue
+        if not layered and n_layers != 1:
+            continue
+        shape = [1] * arr.dim()
+        shape[dim] = n_units
+        if layered:
+            shape[0] = n_layers
+            m = m * um.reshape(shape)
+        else:
+            m = m * um[0].reshape(shape)
+    return m
+
+
 def expand_masks(axes_tree, unit_masks: Dict[str, torch.Tensor], params_tree):
     """Params-shaped 0/1 mask tree from (layers, units) unit masks.
     Parameters with no maskable axis get ones (norms, embeddings...)."""
-    axes = dict(tree_paths(axes_tree, is_leaf=lambda x: isinstance(x, tuple)))
-    out = {}
-    for path, arr in tree_paths(params_tree):
-        ax = axes.get(path)
-        m = torch.ones(arr.shape, dtype=torch.float32, device=arr.device)
-        if ax is not None:
-            layered = bool(ax) and ax[0] == "layers"
-            for key, um in unit_masks.items():
-                unit_axis = _match(key, path, ax)
-                if unit_axis is None:
-                    continue
-                dim = ax.index(unit_axis)
-                n_layers, n_units = um.shape
-                if arr.shape[dim] != n_units:
-                    continue
-                if layered and arr.shape[0] != n_layers:
-                    continue
-                if not layered and n_layers != 1:
-                    continue
-                shape = [1] * arr.dim()
-                shape[dim] = n_units
-                if layered:
-                    shape[0] = n_layers
-                    m = m * um.reshape(shape)
-                else:
-                    m = m * um[0].reshape(shape)
-        out[path] = m
-    return unflatten(out)
+    axes = axes_by_path(axes_tree)
+    return unflatten({path: expand_mask_leaf(axes.get(path), unit_masks,
+                                             path, arr)
+                      for path, arr in tree_paths(params_tree)})
 
 
 def cnn_expand_masks(unit_masks: Dict[str, torch.Tensor],

@@ -90,6 +90,11 @@ def cycle_scores(params_new, params_old, axes_tree,
     return C.unit_scores(C.delta(params_new, params_old), axes_tree, schema)
 
 
+def grad_scores(grads, axes_tree, schema) -> Dict[str, torch.Tensor]:
+    """grad_ema variant: per-unit |grad| of one step (O(units) state)."""
+    return C.unit_scores(grads, axes_tree, schema)
+
+
 def set_volume(state: dict, volume: float) -> dict:
     return {**state, "volume": np.float32(volume)}
 

@@ -4,9 +4,10 @@
 Everything that varies by model family — the batch dict (images + labels
 or a token stream), the eval metric (accuracy or cross-entropy), per-unit
 cycle scores and parameter-space mask expansion — lives behind an adapter,
-so the engine stays family-blind.  The port has the CNN testbed, the
-dense and MoE LMs and the hybrid; :func:`make_adapter` dispatches on
-``cfg.family``.
+so the engine stays family-blind.  The port has the CNN testbed and the
+token LMs (dense, MoE, xLSTM and the hybrid); :func:`make_adapter`
+dispatches on ``cfg.family``.  The VLM has no adapter, as in the
+reference: it trains through ``launch.steps`` only.
 """
 from __future__ import annotations
 
@@ -117,7 +118,7 @@ class CNNAdapter(FamilyAdapter):
 
 
 class TokenLMAdapter(FamilyAdapter):
-    """Token-stream LM (the dense, MoE and hybrid families): axis-driven
+    """Token-stream LM (the dense, MoE, ssm and hybrid families): axis-driven
     scores, cross-entropy eval, logical-axes mask expansion.  ``rt``
     carries ``kernels`` into the family's loss (the dense MLP and
     attention, or the hybrid's SSD intra-chunk term)."""
@@ -152,7 +153,8 @@ class TokenLMAdapter(FamilyAdapter):
 
 
 _ADAPTERS = {"cnn": CNNAdapter, "dense": TokenLMAdapter,
-             "moe": TokenLMAdapter, "hybrid": TokenLMAdapter}
+             "moe": TokenLMAdapter, "ssm": TokenLMAdapter,
+             "hybrid": TokenLMAdapter}
 
 
 def make_adapter(cfg: ModelConfig, kernels: str, mask_block: int,

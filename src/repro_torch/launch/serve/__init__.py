@@ -34,7 +34,7 @@ Telemetry goes to the shared :class:`repro_torch.obs.Recorder`:
 a snapshot, so ``python -m repro_torch.obs report``
 shows the serving plane beside the training rounds.
 
-  python -m repro_torch.launch.serve --arch deepseek-7b --reduced \\
+  python -m repro_torch.launch.serve --arch xlstm-125m --reduced \\
       --batch 8 --prompt-len 64 --gen 32 [--ckpt-dir DIR] [--device cpu]
 """
 from __future__ import annotations
@@ -62,12 +62,23 @@ from repro_torch.models.module import tree_leaves
 from repro_torch.obs import recorder as OBS
 
 
-def serve_batch(prompts: np.ndarray, device: DeviceLike = None
+def serve_batch(prompts: np.ndarray, device: DeviceLike = None,
+                cfg: Optional[ModelConfig] = None,
+                rng: Optional[np.random.Generator] = None
                 ) -> Dict[str, torch.Tensor]:
-    """The model-input dict of a prompt batch (B, S) on ``device`` (the
-    port's serving families take tokens only)."""
-    return {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
-                                      device=resolve_device(device))}
+    """The model-input dict of a prompt batch (B, S) on ``device``; a VLM
+    ``cfg`` adds its stub image prefix, ``image_embeds`` (B,
+    num_image_tokens, d_model) drawn from ``rng`` as the reference draws
+    it."""
+    dev = resolve_device(device)
+    batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
+                                       device=dev)}
+    if cfg is not None and cfg.family == "vlm":
+        n = batch["tokens"].shape[0]
+        batch["image_embeds"] = torch.as_tensor(
+            rng.normal(size=(n, cfg.num_image_tokens, cfg.d_model)),
+            dtype=torch.float32, device=dev)
+    return batch
 
 
 def pad_cache(cache, length: int):
@@ -140,7 +151,7 @@ class GenerationServer:
                              f"is ({self.batch}, {self.prompt_len})")
         with torch.inference_mode():
             logits, cache = self.prefill(params, batch)
-            cache = pad_cache(cache, self.prompt_len + self.gen)
+            cache = pad_cache(cache, cache["pos"] + self.gen)
             token = logits.argmax(-1)[:, None].to(torch.int32)
             out = [token]
             for _ in range(self.gen - 1):
@@ -405,7 +416,7 @@ def main(argv=None, report: Optional[dict] = None):
     the run's config, params, batch, server, prefill logits and the
     prefill / decode seconds (for a caller that checks the generation)."""
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
-    ap.add_argument("--arch", default="deepseek-7b")
+    ap.add_argument("--arch", default="xlstm-125m")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=64)
@@ -433,7 +444,7 @@ def main(argv=None, report: Optional[dict] = None):
         print(f"restored snapshot step {step} from {args.ckpt_dir}")
     prompts = markov_tokens(args.batch, args.prompt_len, cfg.padded_vocab,
                             seed=args.seed)
-    batch = serve_batch(prompts, dev)
+    batch = serve_batch(prompts, dev, cfg, np.random.default_rng(args.seed))
 
     t0 = time.perf_counter()
     logits, cache = srv.prefill(params, batch)
@@ -442,7 +453,7 @@ def main(argv=None, report: Optional[dict] = None):
     print(f"prefill: {args.batch} x {args.prompt_len} tokens in "
           f"{t_prefill:.4f}s")
 
-    cache = pad_cache(cache, args.prompt_len + args.gen)
+    cache = pad_cache(cache, cache["pos"] + args.gen)
     token = logits.argmax(-1)[:, None].to(torch.int32)
     wait(token)                       # the padding is queued before it
     generated = [token]

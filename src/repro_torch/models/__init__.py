@@ -1,6 +1,6 @@
-"""Model API of the port: family dispatch (the paper CNNs, the dense and
-MoE LMs and the Mamba2 + shared-attention hybrid), with the token-LM
-families' prefill and decode for serving."""
+"""Model API of the port: family dispatch (the paper CNNs, the dense, MoE
+and VLM LMs, the Mamba2 + shared-attention hybrid and xLSTM), with the
+token-LM families' prefill and decode for serving."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +10,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import cnn, hybrid, transformer
+from repro_torch.models import cnn, hybrid, transformer, xlstm
 from repro_torch.models import module as M
 
 
@@ -28,7 +28,7 @@ class ModelAPI:
 
 
 def build(cfg: ModelConfig) -> ModelAPI:
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         return ModelAPI(cfg, transformer.lm_spec(cfg), transformer.lm_loss,
                         transformer.lm_prefill, transformer.lm_decode,
                         transformer.mask_schema(cfg))
@@ -36,13 +36,17 @@ def build(cfg: ModelConfig) -> ModelAPI:
         return ModelAPI(cfg, hybrid.hybrid_spec(cfg), hybrid.hybrid_loss,
                         hybrid.hybrid_prefill, hybrid.hybrid_decode,
                         hybrid.mask_schema(cfg))
+    if cfg.family == "ssm":
+        return ModelAPI(cfg, xlstm.xlstm_spec(cfg), xlstm.xlstm_loss,
+                        xlstm.xlstm_prefill, xlstm.xlstm_decode,
+                        xlstm.xlstm_mask_schema(cfg))
     if cfg.family == "cnn":
         return ModelAPI(cfg, cnn.cnn_spec(cfg), cnn.cnn_loss, None, None,
                         cnn.cnn_mask_schema(cfg))
     raise NotImplementedError(
-        f"the port has the cnn, dense, moe and hybrid families, not "
-        f"{cfg.family!r}; vlm waits (ROADMAP.md, modules to port, item 9), "
-        f"ssm (xlstm) and encdec too (item 15)")
+        f"the port has the cnn, dense, moe, vlm, hybrid and ssm families, "
+        f"not {cfg.family!r}; encdec (SeamlessM4T) waits (ROADMAP.md, "
+        f"modules to port, item 15)")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,

@@ -282,7 +282,9 @@ def embed_spec(vocab: int, d: int, tie: bool):
 
 
 def embed(params, tokens):
-    return params["embedding"][tokens.long()]
+    # F.embedding's backward sums a row's gradients in a fixed order (an
+    # indexing gather's backward on the CPU accumulates in thread order)
+    return F.embedding(tokens.long(), params["embedding"])
 
 
 def unembed(params, x):

@@ -1,6 +1,6 @@
 # repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
-"""Decoder-only LM assembly, dense and MoE families: the training loss,
-prefill and decode.
+"""Decoder-only LM assembly, dense, MoE and VLM families: the training
+loss, prefill and decode.
 
 The layer params are STACKED as in the reference (a leading ``layers`` axis
 on every leaf of a stack), so Eq. 1 scores, mask expansion and Eq. 10
@@ -15,6 +15,11 @@ Helios masks enter as a dict of stacked unit masks
 stack-scoped head keys such as ``"moe_blocks:heads"`` when there are two
 stacks), sliced per layer; masked-out units drop out of the forward pass,
 so their parameters get zero gradient.
+
+The VLM (``vlm``) is the dense LM behind a stub image frontend: the batch
+carries ``image_embeds`` (B, num_image_tokens, d), placed before the token
+embeddings inside the one causal sequence (flash attends over both), with
+a zero loss mask; the loss scores text positions only.
 
 Serving (:func:`lm_prefill`, :func:`lm_decode`) follows the reference's
 code: attention takes ``rt["attn_impl"]`` and the MLP its plain masked
@@ -40,10 +45,10 @@ from repro_torch.models.module import stack, unstack
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.use_mla:
+    if cfg.family not in ("dense", "moe", "vlm") or cfg.use_mla:
         raise NotImplementedError(
-            f"the port's LM has the dense and MoE families, got "
-            f"{cfg.family!r} (use_mla={cfg.use_mla}); MLA and VLM wait "
+            f"the port's LM has the dense, MoE and VLM families, got "
+            f"{cfg.family!r} (use_mla={cfg.use_mla}); MLA waits "
             f"(ROADMAP.md, modules to port, item 9)")
 
 
@@ -211,16 +216,23 @@ def default_runtime() -> dict:
 
 
 def _embed_inputs(params, batch, cfg):
-    """Token embedding (the VLM image prefix is not ported).  Returns
-    (x, loss_mask)."""
-    x = L.embed(params["embed"], batch["tokens"])
-    return x, torch.ones(batch["tokens"].shape, dtype=x.dtype,
-                         device=x.device)
+    """Token embedding, after the VLM's image prefix.  Returns (x,
+    loss_mask), the mask 0 over the prefix."""
+    tokens = batch["tokens"]
+    x = L.embed(params["embed"], tokens)
+    loss_mask = torch.ones(tokens.shape, dtype=x.dtype, device=x.device)
+    if cfg.family == "vlm":
+        img = batch["image_embeds"].to(x.dtype)             # (B, Nimg, d)
+        x = torch.cat([img, x], dim=1)
+        loss_mask = torch.cat([img.new_zeros(img.shape[:2]), loss_mask],
+                              dim=1)
+    return x, loss_mask
 
 
 def lm_loss(params, batch, cfg: ModelConfig, rt, masks=None):
-    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S); the
-    last position has no target."""
+    """Mean next-token cross-entropy of ``batch["tokens"]`` (B, S), scored
+    from the text offset on (after a VLM's image prefix); the last
+    position has no target."""
     x, loss_mask = _embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
@@ -229,9 +241,12 @@ def lm_loss(params, batch, cfg: ModelConfig, rt, masks=None):
     tokens = batch["tokens"]
     targets = torch.cat([tokens, torch.zeros((b, 1), dtype=tokens.dtype,
                                              device=tokens.device)], dim=1)
-    mask = loss_mask.clone()
+    offset = s - tokens.shape[1]                        # image prefix length
+    tgt = targets[:, 1:]
+    pred = logits[:, offset:offset + tgt.shape[1]]
+    mask = loss_mask[:, offset:offset + tgt.shape[1]].clone()
     mask[:, -1] = 0.0                                   # no target for last
-    return L.cross_entropy_loss(logits, targets[:, 1:], mask)
+    return L.cross_entropy_loss(pred, tgt, mask)
 
 
 # ---------------------------------------------------------------------------
@@ -241,8 +256,9 @@ def lm_loss(params, batch, cfg: ModelConfig, rt, masks=None):
 
 def lm_prefill(params, batch, cfg: ModelConfig, rt, masks=None
                ) -> Tuple[torch.Tensor, dict]:
-    """Forward over the prompt ``batch["tokens"]`` (B, S); returns the last
-    position's logits (B, V) and the cache, exactly S positions long."""
+    """Forward over the prompt ``batch["tokens"]`` (B, S), after a VLM's
+    image prefix; returns the last position's logits (B, V) and the cache,
+    exactly as long as the sequence (prefix included)."""
     x, _ = _embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)

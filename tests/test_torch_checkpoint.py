@@ -10,6 +10,8 @@ against the JAX package's ``repro.checkpoint``.
 * the codec flag: ``z`` through ``zstandard`` when it imports (a stub
   stands in for it, so the case runs without it), ``d`` (zlib level 6)
   otherwise, and a clean error for a ``z`` file without ``zstandard``;
+  the zlib body deflated chunk by chunk on threads is one standard
+  stream, which ``zlib.decompress`` and the reference read;
 * the reference's bugfix sweep (``tests/test_serve.py``): ``keep < 1``
   raises, GC keeps exactly N and sweeps crash leftovers, NamedTuples come
   back as themselves, an empty directory raises the clean error, and a
@@ -226,6 +228,47 @@ def test_zstd_flag_when_zstandard_imports(monkeypatch, tmp_path):
     out, step = JCKPT.restore(d, _tree(0))       # the reference reads it
     assert step == 2
     np.testing.assert_array_equal(out["b"], _tree(2)["b"])
+
+
+def test_chunked_zlib_stream_reads_everywhere(monkeypatch, tmp_path,
+                                             lm_params):
+    """With 1 KiB chunks a snapshot spans hundreds of deflate chunks: the
+    body is one zlib stream (``zlib.decompress`` gives the payload back,
+    the adler32 included), the port and the reference restore it bit for
+    bit, and empty and one-byte payloads round-trip."""
+    monkeypatch.setattr(CK, "_zstd", lambda: None)
+    monkeypatch.setattr(CK, "_ZLIB_CHUNK", 1024)
+    for payload in (b"", b"x", bytes(range(256)) * 40):
+        assert zlib.decompress(CK._zlib_stream(payload)) == payload
+    d = str(tmp_path)
+    path = CKPT.save(d, 3, params_from_numpy(lm_params, device="cpu"))
+    blob = open(path, "rb").read()
+    assert blob[:5] == b"HCKP" + b"d"
+    assert len(zlib.decompress(blob[5:])) > 100 * 1024
+    zero = jax.tree.map(np.zeros_like, lm_params)
+    out, _ = CKPT.restore(d, params_from_numpy(zero, device="cpu"))
+    jout, step = JCKPT.restore(d, zero)
+    assert step == 3
+    from repro.models.module import tree_paths
+    got, jgot = dict(tree_paths(out)), dict(tree_paths(jout))
+    for k, v in tree_paths(lm_params):
+        np.testing.assert_array_equal(got[k].numpy(), v)
+        np.testing.assert_array_equal(jgot[k], v)
+
+
+@pytest.mark.parametrize("cores,threads,want", [
+    (1, 1, 1), (8, 1, 8), (32, 1, 8), (1, 2, 1), (2, 2, 1), (8, 2, 4),
+    (32, 3, 8)])
+def test_zlib_threads_leave_half_the_cores_to_other_threads(
+        monkeypatch, cores, threads, want):
+    """A save deflates on the cores the process may run on (at most
+    ``_ZLIB_THREADS``), and on half of them while another Python thread is
+    alive, so a thread serving requests in the same process keeps cores
+    while a snapshot is written; always on at least one."""
+    monkeypatch.setattr(CK.os, "sched_getaffinity",
+                        lambda pid: set(range(cores)), raising=False)
+    monkeypatch.setattr(CK.threading, "active_count", lambda: threads)
+    assert CK.zlib_threads() == want
 
 
 def test_unknown_codec_flag_raises(tmp_path):

@@ -87,6 +87,16 @@ def test_port_imports_with_jax_blocked():
         "from repro_torch.models.ssm import mamba2_decode\n"
         "from repro_torch.configs import get_model_config\n"
         "assert build(get_model_config('zamba2-1.2b')).prefill_fn\n"
+        "import repro_torch.launch.train, repro_torch.launch.steps\n"
+        "import repro_torch.models.xlstm\n"
+        "from repro_torch.launch.steps import (make_train_step, "
+        "make_fl_round_step, init_train_state)\n"
+        "from repro_torch.optim import adamw, warmup_cosine_schedule\n"
+        "for name in ('xlstm-125m', 'internvl2-1b'):\n"
+        "    api = build(get_model_config(name))\n"
+        "    assert api.mask_schema and api.prefill_fn and api.decode_fn\n"
+        "assert build(get_model_config('xlstm-125m')).cfg.family == 'ssm'\n"
+        "assert build(get_model_config('internvl2-1b')).cfg.family == 'vlm'\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro', 'msgpack', "
         "'zstandard') for m, v in sys.modules.items() if v is not None)\n"
         "import tempfile, torch\n"

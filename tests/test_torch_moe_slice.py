@@ -368,15 +368,20 @@ def test_make_adapter_dispatch_moe():
 
 
 def test_mla_and_vlm_refused():
-    """MLA and the VLM prefix are not ported: the LM refuses them, naming
-    the roadmap item."""
+    """MLA is not ported: the LM and ``reduced`` refuse it, naming the
+    roadmap item.  The VLM is ported (the image prefix, since the training
+    launch) but, as in the reference, has no FL adapter: the engines
+    refuse it."""
+    from repro_torch.federated.adapter import make_adapter
     base = CFGS["granite"][1]
-    for cfg in (dataclasses.replace(base, use_mla=True),
-                dataclasses.replace(base, family="vlm")):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            build(cfg)
-    with pytest.raises(ValueError, match="MLA and VLM wait"):
+    with pytest.raises(NotImplementedError, match="item 9"):
+        build(dataclasses.replace(base, use_mla=True))
+    with pytest.raises(ValueError, match="MLA .* item 9"):
         TC.reduced(dataclasses.replace(base, use_mla=True))
+    vlm = TC.reduced(TC.INTERNVL2_1B)
+    assert build(vlm).mask_schema == {"heads": (4, 4), "mlp": (4, 96)}
+    with pytest.raises(NotImplementedError, match="supported families"):
+        make_adapter(vlm, "cuda", 16, torch.device("cpu"))
 
 
 def test_batched_engines_refuse_moe():
