@@ -176,7 +176,32 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    decode step held against a re-prefill at max(1e-4, twice a nudged
    twin's drift); the masked pair and flash at the new shapes against
    their plain versions and timed beside their bounds, ``torch.matmul``
-   and SDPA.
+   and SDPA;
+4m. the paper's reproduction (``repro_torch.drivers.paper_figures`` and
+   the four example drivers) on the card, the masked pair's counters
+   zeroed before and read after each run: the pair at LeNet's fc shapes
+   (fc0 K 256, N 120; fc1 K 120, N 84: one partial 128-column block
+   each) at batch 32 (the tables) and 16 (async_events, observability),
+   forward, dx and dw with the block live and dead, and its client-axis
+   entries at C = 4, batch 32 and 16 (one client without its live block;
+   also the shared weights at batch 16) and at C = 1, batch 16 (a jittered
+   bucket, block live and dead), held against their plain versions and
+   repeated bit-identical, then timed at batch 32 beside their bounds,
+   the plain versions and ``torch.matmul`` / ``torch.bmm``; Fig. 5 (``table_convergence``, 14
+   rounds, lr 0.02) at full width on LeNet, AlexNet and ResNet-18, 2 + 2
+   and 3 + 3 fleets, five schemes, on the kernel path, AlexNet also on
+   the plain path and a 2^-23-nudged plain twin: rows, cycles, sim times
+   and volumes identical on both paths, every loss finite, masked
+   launches in every LeNet and AlexNet run and none in ResNet-18's, each
+   row's final accuracy beside the plain and nudged ones; the speedup
+   (16 rounds), Fig. 6 (10), Fig. 7 (12) and the P_s ablation (10) on
+   LeNet, each P_s row's first round held against the plain path at
+   1e-4; the quickstart walk, the elastic join / leave on both paths (the
+   newcomer a straggler, history identical), async_events at 64 clients
+   (dropout 0.1, jitter 0.3) with both engines' events/s, and
+   observability's armed ``BatchedFLRun`` on both paths (its run log's
+   rounds equal the run's, client-axis launches, held as the P_s rows
+   are); every plain path and nudged twin launches no masked kernel.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and before that the
@@ -254,8 +279,9 @@ def card_line() -> str:
 
 
 def _alive(nb: int, p: float, g: torch.Generator) -> torch.Tensor:
-    """Block flags with round(p·nb) live blocks (at least one)."""
-    k = max(1, int(round(p * nb)))
+    """Block flags with round(p·nb) live blocks (at least one; none at
+    p = 0)."""
+    k = max(1, int(round(p * nb))) if p > 0 else 0
     flags = torch.zeros(nb, device="cuda")
     flags[torch.randperm(nb, generator=g, device="cuda")[:k]] = 1
     return flags
@@ -312,26 +338,29 @@ def _check_call(label: str, fn, plain, x, w, live, dead, block: int,
     the configuration the wrapper's plan picked)."""
     from repro_torch.kernels import masked_matmul as K
     name = fn.__name__
+    # with no live block the wrapper returns zeros and launches nothing
     p = K.plan(name, x.shape[0], w.shape[1], x.shape[1], live.numel(), block,
-               x, w)
+               x, w) if live.numel() else None
     y = fn(x, w, live, block)
     again = fn(x, w, live, block)
     want = plain(x.float(), w.float(), live, block)
     torch.cuda.synchronize()
     err = float((y.float() - want).abs().max())
     tol = (F32_TOL if dt == torch.float32 else BF16_TOL) * \
-        float(want.abs().max())
+        max(float(want.abs().max()), 1e-30)
     zero_ok = dead is None or bool((y[:, dead] == 0).all())
     same = torch.equal(y, again)
-    log(f"check {name:17s} {label} {str(dt)[6:]:8s} [{p.config} S={p.splits}"
-        f" grid={p.grid}] max|err|={err:.3e} tol={tol:.3e} "
+    how = "no live block, no launch" if p is None else \
+        f"{p.config} S={p.splits} grid={p.grid}"
+    log(f"check {name:17s} {label} {str(dt)[6:]:8s} [{how}] "
+        f"max|err|={err:.3e} tol={tol:.3e} "
         f"dead-zero={zero_ok} repeat-identical={same}")
     if not (err <= tol and zero_ok and same and math.isfinite(err)):
         raise AssertionError(f"{name} {label} disagrees with its plain "
                              f"version: err {err} > tol {tol}, dead columns "
                              f"not zero ({zero_ok}) or a repeat differs "
                              f"({same})")
-    return err, p.config
+    return err, None if p is None else p.config
 
 
 def check_kernels() -> dict:
@@ -734,6 +763,32 @@ def _client_bound(kernel: str, m: int, k: int, n: int, cols) -> tuple:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def _time_client_call(layer: str, kind: str, c: int, m: int, k: int,
+                      n: int, p: float, g, n_sets: int = 0) -> dict:
+    """One client-axis call of a layer, every client at P = ``p``, over
+    ``n_sets`` operand sets (0: as many as together pass the 50 MB L2):
+    device time, the plain version's (a loop over the clients) event time
+    as issued, ``torch.bmm`` at P = 1 on the same views by device time,
+    and the bound summed over the clients."""
+    per_set = 4 * c * (m * k + k * n + m * n)
+    sets, dense = [], []
+    for _ in range(n_sets or max(1, -(-100_000_000 // per_set))):
+        fn, plain, x, w, live, counts, _, cols = _client_case(
+            kind, c, m, k, n, torch.float32, g, p=p)
+        sets.append((x, w, live, counts, BLOCK))
+        dense.append((x, w))
+    name = fn.__name__
+    bound, by = _client_bound(name.replace("_clients", ""), x.shape[1],
+                              x.shape[2], w.shape[2], cols)
+    t = {"ms": _device_ms(fn, sets), "plain_ms": _time_ms(plain, sets),
+         "library_ms": _device_ms(torch.bmm, dense), "bound_ms": bound,
+         "bound_by": by}
+    log(f"time {name} {layer} {kind} C={c} M={m} K={k} N={n} P={p}: device "
+        f"{t['ms']:.4f} ms (torch.bmm P=1 same views {t['library_ms']:.4f}), "
+        f"plain {t['plain_ms']:.4f} as issued; bound {bound:.4f} by {by}")
+    return t
+
+
 def time_client_kernels(worst: dict, launches: dict) -> list:
     """The client-axis pair at fc0 forward and dx, every client at P = 0.5:
     the 2 + 2 fleet's cohort of 2 at batch 32 (the rows' own numbers) and
@@ -745,26 +800,9 @@ def time_client_kernels(worst: dict, launches: dict) -> list:
     k, n = LAYERS["fc0"]
     out = []
     for kind, name in (("fwd", "masked_matmul"), ("dx", "masked_matmul_dk")):
-        rows = {}
-        for c, m in ((2, BATCH), (32, 16)):
-            per_set = 4 * c * (m * k + k * n + m * n)
-            sets, dense = [], []
-            for _ in range(max(1, -(-100_000_000 // per_set))):
-                fn, plain, x, w, live, counts, _, cols = _client_case(
-                    kind, c, m, k, n, torch.float32, g, p=0.5)
-                sets.append((x, w, live, counts, BLOCK))
-                dense.append((x, w))
-            bound, by = _client_bound(name, x.shape[1], x.shape[2],
-                                      w.shape[2], cols)
-            rows[f"C={c} M={m}"] = t = {
-                "ms": _device_ms(fn, sets), "plain_ms": _time_ms(plain, sets),
-                "library_ms": _device_ms(torch.bmm, dense),
-                "bound_ms": bound, "bound_by": by}
-            log(f"time {name}_clients fc0 {kind} C={c} M={m} P=0.5: device "
-                f"{t['ms']:.4f} ms (torch.bmm P=1 same views "
-                f"{t['library_ms']:.4f}), plain {t['plain_ms']:.4f} as "
-                f"issued; bound {bound:.4f} by {by}")
-            del sets, dense
+        rows = {f"C={c} M={m}": _time_client_call("fc0", kind, c, m, k, n,
+                                                  0.5, g)
+                for c, m in ((2, BATCH), (32, 16))}
         main = rows[f"C=2 M={BATCH}"]
         out.append({"name": f"{name}_clients", "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
@@ -1178,7 +1216,7 @@ def _client_case(kind: str, c: int, m: int, k: int, n: int, dtype, g,
     counts, dead (C, N) or None, live columns per client)."""
     from repro_torch.kernels import masked_matmul as K
     from repro_torch.kernels import ref
-    nb = n // BLOCK
+    nb = -(-n // BLOCK)
     if shared:
         flags = torch.ones(nb, device="cuda").expand(c, nb)
     elif p is not None or c == 1:
@@ -1188,7 +1226,7 @@ def _client_case(kind: str, c: int, m: int, k: int, n: int, dtype, g,
         flags = torch.stack([torch.zeros(nb, device="cuda")] + [
             _alive(nb, (0.25, 0.5, 1.0)[i % 3], g) for i in range(1, c)])
     live, counts = K.live_table(flags)
-    mask = flags.repeat_interleave(BLOCK, dim=1)
+    mask = flags.repeat_interleave(BLOCK, dim=1)[:, :n]
     if shared:
         w = (torch.randn(k, n, device="cuda", generator=g) / k ** 0.5) \
             .to(dtype).expand(c, k, n)
@@ -1198,7 +1236,7 @@ def _client_case(kind: str, c: int, m: int, k: int, n: int, dtype, g,
     x = torch.randn(c, m, k, device="cuda", generator=g).to(dtype)
     dy = (torch.randn(c, m, n, device="cuda", generator=g)
           * mask[:, None, :]).to(dtype)
-    cols = [int(v) * BLOCK for v in counts.tolist()]
+    cols = [min(int(v) * BLOCK, n) for v in counts.tolist()]
     if kind == "fwd":
         return (K.masked_matmul_clients, ref.masked_matmul_clients_ref, x, w,
                 live, counts, mask == 0, cols)
@@ -4030,6 +4068,357 @@ def launch_phase(kernels: list) -> None:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 4m: the paper's reproduction at full width
+# ---------------------------------------------------------------------------
+
+#: LeNet's masked fc layers (K, N), each one partial column block of 128:
+#: fc0 256 -> 120, fc1 120 -> 84
+LENET_LAYERS = {"fc0": (256, 120), "fc1": (120, 84)}
+#: LeNet's batches on the main path: 32 in the tables, quickstart and
+#: elastic_scaling; 16 in async_events and observability
+LENET_BATCHES = (BATCH, 16)
+#: the client-axis calls held: (C, M, every client's P or None, shared).
+#: observability's BatchedFLRun trains cohorts of 4 (4 capable clients, 4
+#: stragglers) at batch 16, a capable cohort's first step on the shared
+#: weights; AsyncFLRun's buckets under jitter hold one client at batch 16,
+#: its one block live or dead; C 4 at batch 32 is the timed cohort.  None:
+#: client 0 without its live block, the others with it
+LENET_CLIENT_CASES = ((4, BATCH, None, False), (4, 16, None, False),
+                      (4, 16, None, True), (1, 16, 1.0, False),
+                      (1, 16, 0.0, False))
+#: the cohort the client-axis entries are timed at
+LENET_CLIENTS = 4
+#: the tables' rounds, the reference harness's defaults
+REPRO_ROUNDS = {"fig5": 14, "speedup": 16, "fig6": 10, "fig7": 12,
+                "ablation": 10}
+SINGLE = ("masked_matmul", "masked_matmul_dk")
+
+
+def check_lenet_kernels() -> tuple:
+    """The masked pair at LeNet's fc shapes: forward, dx and dw at batch
+    32 and 16 with the layer's one block live and dead, then the
+    client-axis entries at LENET_CLIENT_CASES, each call held against its
+    plain version and repeated bit-identical; then the device time of each
+    forward and dx at batch 32, P = 1, beside its bound, its plain version
+    and ``torch.matmul`` / ``torch.bmm``.  Returns (worst f32 error per
+    kernel row, times per kernel row)."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst = {k: 0.0 for k in SINGLE + tuple(f"{k}_clients" for k in SINGLE)}
+    for layer, (k, n) in LENET_LAYERS.items():
+        for kind in ("fwd", "dx", "dw"):
+            for m in LENET_BATCHES:
+                for p in (1.0, 0.0):
+                    fn, plain, x, w, live, dead = _case(kind, m, k, n, p,
+                                                        torch.float32, g)
+                    err, config = _check_call(
+                        f"LeNet {layer} {kind} m={m} k={k} n={n} P={p}", fn,
+                        plain, x, w, live, dead, BLOCK, torch.float32)
+                    if p and kind != "dw" and config != "splitk":
+                        raise AssertionError(f"LeNet {layer} {kind} m={m} "
+                                             f"took {config}, not splitk")
+                    worst[fn.__name__] = max(worst[fn.__name__], err)
+            for c, m, p, shared in LENET_CLIENT_CASES:
+                if shared and kind == "dw":
+                    continue        # dw's operands are the clients' own
+                fn, plain, x, w, live, counts, dead, _ = _client_case(
+                    kind, c, m, k, n, torch.float32, g, shared, p)
+                err, config = _check_client_call(
+                    f"LeNet {layer} {kind} C={c} m={m} k={k} n={n} "
+                    f"{'shared' if shared else 'mixed' if p is None else p}",
+                    fn, plain, x, w, live, counts, dead, torch.float32)
+                if kind != "dw" and config != "splitk":
+                    raise AssertionError(f"LeNet client {layer} {kind} C={c} "
+                                         f"m={m} took {config}, not splitk")
+                worst[fn.__name__] = max(worst[fn.__name__], err)
+    # LeNet's params (under 0.2 MB) stay in the 50 MB L2 on
+    # the main path, so the calls rotate over 8 sets, warm in the L2
+    times = {k: {} for k in worst}
+    for layer, (k, n) in LENET_LAYERS.items():
+        for kind in ("fwd", "dx"):
+            call = LAYER_CALLS[kind](BATCH, k, n)
+            times[call[0]][f"{layer} {kind}"] = _time_call(
+                f"LeNet {layer} {kind}", *call, 1.0, g, 8)
+            times[f"{call[0]}_clients"][f"{layer} {kind}"] = \
+                _time_client_call(f"LeNet {layer}", kind, LENET_CLIENTS,
+                                  BATCH, k, n, 1.0, g, 8)
+    from repro_torch.kernels import masked_matmul as K
+    K.reset_launches()
+    return worst, times
+
+
+def _table_runs(fn, **kw) -> tuple:
+    """Run a ``paper_figures`` table with the masked pair's counters zeroed
+    before and read after each of its runs: (its rows, [(history,
+    single-client launches, client-axis launches)] in run order)."""
+    from repro_torch.drivers import paper_figures as PF
+    from repro_torch.kernels import masked_matmul as K
+    runs, inner = [], PF._run_scheme
+
+    def counted(*a, **k):
+        K.reset_launches()
+        hist = inner(*a, **k)
+        runs.append((hist, *_counts()))
+        return hist
+
+    PF._run_scheme = counted
+    try:
+        rows = fn(**kw)
+    finally:
+        PF._run_scheme = inner
+    return rows, runs
+
+
+def _check_table_runs(what: str, runs, model: str) -> dict:
+    """Every loss finite; the masked pair launched in every run of LeNet and
+    AlexNet (the sequential engine: single-client entries only) and in
+    none of ResNet-18's.  Returns the launches summed."""
+    total = {k: 0 for k in SINGLE}
+    for i, (hist, single, client) in enumerate(runs):
+        if not all(math.isfinite(h["loss"]) for h in hist):
+            raise AssertionError(f"{what} run {i}: a non-finite loss "
+                                 f"{[h['loss'] for h in hist]}")
+        launched = min(single.values()) > 0
+        if any(client.values()) or launched != (model != "resnet18") or \
+                (model == "resnet18" and any(single.values())):
+            raise AssertionError(f"{what} run {i}: masked launches {single}"
+                                 f" / client-axis {client} on {model}")
+        total = _add(total, single)
+    return total
+
+
+def _no_launches(what: str, single: dict, client: dict) -> None:
+    """A plain path's run launched neither kernel of the pair."""
+    if any(single.values()) or any(client.values()):
+        raise AssertionError(f"{what}: the plain path launched masked "
+                             f"kernels {single} / client-axis {client}")
+
+
+def _same_clocks(what: str, a, b, rows: bool) -> None:
+    """Two paths' runs with identical cycles, sim times and volumes, and
+    (``rows``) identical row names and sim times a cycle."""
+    (rows_a, runs_a), (rows_b, runs_b) = a, b
+    if rows and [r.split(",")[:2] for r in rows_a] != \
+            [r.split(",")[:2] for r in rows_b]:
+        raise AssertionError(f"{what}: rows differ {rows_a} vs {rows_b}")
+    if len(runs_a) != len(runs_b):
+        raise AssertionError(f"{what}: {len(runs_a)} runs vs {len(runs_b)}")
+    for (ha, _, _), (hb, _, _) in zip(runs_a, runs_b):
+        # an event-driven run's rows carry no volumes
+        for key in ("cycle", "time", "volumes"):
+            if [h.get(key) for h in ha] != [h.get(key) for h in hb]:
+                raise AssertionError(f"{what}: history {key} differs: "
+                                     f"{[h.get(key) for h in ha]} vs "
+                                     f"{[h.get(key) for h in hb]}")
+
+
+#: the tables phase 4m runs: (table, its keywords, model); Fig. 5 one
+#: model a call, so that each call takes that model's params
+REPRO_CALLS = (("fig5", {"models": ("lenet",)}, "lenet"),
+               ("fig5", {"models": ("alexnet",)}, "alexnet"),
+               ("fig5", {"models": ("resnet18",)}, "resnet18"),
+               ("speedup", {}, "lenet"), ("fig6", {}, "lenet"),
+               ("fig7", {}, "lenet"), ("ablation", {}, "lenet"))
+
+
+def repro_figures(twins=("alexnet",)) -> dict:
+    """The five tables at the reference's rounds and full widths (Fig. 5 on
+    LeNet, AlexNet and ResNet-18, the others on LeNet) on the kernel path;
+    each table of a model in ``twins`` also on a 2^-23-nudged plain twin,
+    and AlexNet's also on the plain path (clocks identical on every
+    path), with each run's final accuracy on the paths and the table's
+    spread against them; then each P_s row's first round held kernel
+    against plain.  Returns the single-client launches."""
+    from repro_torch.configs import HeliosConfig
+    from repro_torch.drivers import paper_figures as PF
+    from repro_torch.kernels import masked_matmul as K
+    from repro_torch.models import init_params
+    total = {k: 0 for k in SINGLE}
+    for name, kw, model in REPRO_CALLS:
+        t0 = time.perf_counter()
+        paths = [("cuda", "cuda", None)]
+        if model in twins:
+            nudged = {k: v * (1 + 2.0 ** -23) for k, v in init_params(
+                PF.model_config(model, "full"), 0, "cuda").items()}
+            if model == "alexnet":
+                paths.append(("plain", "reference", None))
+            paths.append(("nudged", "reference", nudged))
+        got = {}
+        for path, kernels, init in paths:
+            got[path] = _table_runs(
+                PF.TABLES[name], rounds=REPRO_ROUNDS[name], widths="full",
+                device="cuda", kernels=kernels, init_params=init, **kw)
+        launched = _check_table_runs(f"{name} {model}", got["cuda"][1],
+                                     model)
+        for path in got:
+            if path != "cuda":
+                for i, (_, single, client) in enumerate(got[path][1]):
+                    _no_launches(f"{name} {model} {path} run {i}", single,
+                                 client)
+        total = _add(total, launched)
+        # the speedup's time column is the crossing's, an accuracy's
+        for path in got:
+            if path != "cuda":
+                _same_clocks(f"{name} {model} kernel vs {path}", got["cuda"],
+                             got[path], rows=name != "speedup")
+        accs = {path: [h[-1]["acc"] for h, _, _ in runs]
+                for path, (_, runs) in got.items()}
+        for path, row in ((p, r) for p in got for r in got[p][0]):
+            log(f"repro {path:6s} {row}")
+        for i, acc in enumerate(accs["cuda"]):
+            others = "".join(f", {p} {accs[p][i]:.4f}" for p in got
+                             if p != "cuda")
+            log(f"repro {name} {model} run {i}: final acc kernel {acc:.4f}"
+                f"{others}")
+        spread = {p: max(abs(x - y) for x, y in zip(accs["cuda"], accs[p]))
+                  for p in got if p != "cuda"}
+        log(f"repro {name} {model}: {len(accs['cuda'])} runs in "
+            f"{time.perf_counter() - t0:.1f} s ({len(paths)} paths); final "
+            f"accuracy spread kernel vs {json.dumps(spread)}; masked "
+            f"launches {json.dumps(launched)}")
+    # each P_s row's first round, kernel path against plain path
+    world = PF._world("lenet", 4, widths="full")
+    for p_s in PF.P_S:
+        runs = {}
+        for kernels in ("cuda", "reference"):
+            K.reset_launches()
+            runs[kernels] = PF.make_run(world, "helios", 2, 2,
+                                        hcfg=HeliosConfig(p_s=p_s),
+                                        device="cuda", kernels=kernels)
+            timed_run(runs[kernels], 1)
+            if kernels == "cuda":
+                single, _ = _counts()
+                total = _add(total, single)
+            else:
+                _no_launches(f"ablation p_s={p_s} plain", *_counts())
+        diff = _hold_paths(f"ablation p_s={p_s} first round", runs["cuda"],
+                           runs["reference"], ("cycle", "time", "volumes",
+                                               "ratios"))
+        log(f"ablation p_s={p_s}: first round max|param diff| kernel vs "
+            f"plain {diff:.3e}; masked launches {json.dumps(single)}")
+        if min(single.values()) <= 0:
+            raise AssertionError(f"ablation p_s={p_s}: no masked launch "
+                                 f"{single}")
+    return total
+
+
+def repro_examples() -> tuple:
+    """The four example drivers at their own settings on full LeNet:
+    quickstart, the elastic join / leave on both paths, async_events with
+    64 clients (dropout 0.1, jitter 0.3) and observability's armed
+    BatchedFLRun.  Returns (single-client, client-axis) launches."""
+    from repro_torch.configs import CNNS
+    from repro_torch.drivers.async_events import async_events
+    from repro_torch.drivers.elastic_scaling import elastic_scaling
+    from repro_torch.drivers.observability import observability
+    from repro_torch.drivers.quickstart import quickstart
+    from repro_torch.kernels import masked_matmul as K
+    lenet = CNNS["lenet"]
+    single, client = {k: 0 for k in SINGLE}, {k: 0 for k in SINGLE}
+    K.reset_launches()
+    out = quickstart(lenet, device="cuda", kernels="cuda")
+    s1, c1 = _counts()
+    log(f"quickstart: cycles (loss, selected) {out['cycles']}, masked "
+        f"launches {json.dumps(s1)}")
+    if min(s1.values()) <= 0 or any(c1.values()) or \
+            not all(math.isfinite(lo) for lo, _ in out["cycles"]):
+        raise AssertionError(f"quickstart: launches {s1} / {c1}, cycles "
+                             f"{out['cycles']}")
+    single = _add(single, s1)
+    runs = {}
+    for kernels in ("cuda", "reference"):
+        K.reset_launches()
+        runs[kernels], new = elastic_scaling(lenet, "cuda", kernels)
+        if kernels == "cuda":
+            s1, _ = _counts()
+            single = _add(single, s1)
+        else:
+            _no_launches("elastic", *_counts())
+        log(f"elastic ({kernels}): newcomer cid {new.cid} straggler "
+            f"{new.is_straggler} volume {new.volume:.4f}; accs "
+            f"{[round(h['acc'], 4) for h in runs[kernels].history]}")
+        if not new.is_straggler:
+            raise AssertionError("elastic: the newcomer is not a straggler")
+    for x, y in zip(runs["cuda"].history, runs["reference"].history):
+        for key in ("cycle", "time", "volumes", "ratios"):
+            if x[key] != y[key]:
+                raise AssertionError(f"elastic: history {key} differs: "
+                                     f"{x[key]} vs {y[key]}")
+    log(f"elastic: max|param diff| kernel vs plain after 10 rounds x 5 "
+        f"local steps {_param_diff(runs['cuda'], runs['reference']):.3e}; "
+        f"masked launches {json.dumps(s1)}")
+    if len(runs["cuda"].history) != len(runs["reference"].history) or \
+            min(s1.values()) <= 0:
+        raise AssertionError(f"elastic: histories or launches {s1}")
+    K.reset_launches()
+    ev = async_events(lenet, clients=64, jitter=0.3, dropout=0.1,
+                      device="cuda", kernels="cuda")
+    s1, c1 = _counts()
+    seq, bkt = ev["sequential"]["run"], ev["bucketed"]["run"]
+    log(f"async_events (64 clients, dropout 0.1, jitter 0.3): events/s "
+        f"sequential {ev['sequential']['events_per_s']:.2f}, bucketed "
+        f"{ev['bucketed']['events_per_s']:.2f}; masked launches "
+        f"{json.dumps(s1)}, client-axis {json.dumps(c1)}")
+    if (seq.events_processed, seq.events_dropped) != \
+            (bkt.events_processed, bkt.events_dropped) or \
+            min(s1.values()) <= 0 or min(c1.values()) <= 0:
+        raise AssertionError(f"async_events: events {seq.events_processed} /"
+                             f" {bkt.events_processed}, launches {s1} {c1}")
+    single, client = _add(single, s1), _add(client, c1)
+    obs = {}
+    for kernels in ("cuda", "reference"):
+        K.reset_launches()
+        run, summ = observability(
+            lenet, out=str(ROOT / "chiprun_out" / f"obs_repro_{kernels}"),
+            device="cuda", kernels=kernels)
+        obs[kernels] = run
+        s1, c1 = _counts()
+        log(f"observability ({kernels}): summary {json.dumps(summ)}; "
+            f"client-axis launches {json.dumps(c1)}")
+        if summ["rounds"] != len(run.history):
+            raise AssertionError(f"observability: rounds {summ['rounds']} "
+                                 f"vs {len(run.history)}")
+        if kernels == "reference":
+            _no_launches("observability", s1, c1)
+            continue
+        if min(c1.values()) <= 0 or any(s1.values()):
+            raise AssertionError(f"observability: launches {s1} / {c1}")
+        client = _add(client, c1)
+    diff = _hold_paths("observability", obs["cuda"], obs["reference"],
+                       ("cycle", "time", "volumes", "ratios"))
+    log(f"observability: max|param diff| kernel vs plain after "
+        f"{len(obs['cuda'].history)} rounds {diff:.3e}")
+    return single, client
+
+
+def repro_phase(kernels: list) -> None:
+    """Phase 4m; adds its launches, LeNet's shapes' times and errors to the
+    masked pair's rows of ``kernels``."""
+    t0 = time.perf_counter()
+    worst, times = check_lenet_kernels()
+    log(f"LeNet kernel checks and times took {time.perf_counter() - t0:.1f}"
+        f" s")
+    t1 = time.perf_counter()
+    tables = repro_figures()
+    log(f"the five tables took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    ex_single, ex_client = repro_examples()
+    log(f"the four examples took {time.perf_counter() - t1:.1f} s")
+    paths = {k: {"repro_tables": tables[k], "repro_examples": ex_single[k]}
+             for k in SINGLE}
+    paths.update({f"{k}_clients": {"repro_examples": ex_client[k]}
+                  for k in SINGLE})
+    for row in kernels:
+        name = row["name"]
+        if name not in paths:
+            continue
+        row.setdefault("launches_by_path", {})
+        row["launches_by_path"].update(paths[name])
+        row["launches"] += sum(paths[name].values())
+        row["lenet"] = {"shapes": times[name], "max_abs_err": worst[name]}
+    log(f"phase 4m took {time.perf_counter() - t0:.1f} s")
+
+
 def _device_us(e) -> float:
     """Self device time of a profiler row (the attribute was renamed)."""
     t = getattr(e, "self_device_time_total", None)
@@ -4117,6 +4506,9 @@ def main() -> int:
     _free()
 
     launch_phase(kernels)
+    _free()
+
+    repro_phase(kernels)
 
     log(f"chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))

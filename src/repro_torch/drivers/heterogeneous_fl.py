@@ -1,7 +1,9 @@
 # repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
-"""The paper's comparison (Figs. 5-7): a 4- or 6-device federated
+"""The example's five-scheme table: a 4- or 6-device federated
 collaboration with Table-I stragglers, Helios against Syn FL / Asyn FL /
-Random [12] / AFO [6] on accuracy and simulated wall time.
+Random [12] / AFO [6] on accuracy and simulated wall time.  The paper's
+figure tables (Figs. 5-7, the speedup, the P_s ablation) are
+:mod:`repro_torch.drivers.paper_figures`.
 
     python -m repro_torch.drivers.heterogeneous_fl --devices 4 --rounds 10
     python -m repro_torch.drivers.heterogeneous_fl --device cpu --rounds 2
@@ -23,9 +25,8 @@ from typing import Dict, List, Mapping, Optional
 import torch
 
 from repro_torch.configs import CNNS, HeliosConfig, ModelConfig, reduced
-from repro_torch.data.federated import partition_iid, partition_noniid
-from repro_torch.data.synthetic import class_gaussian_images
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.drivers.paper_figures import world_data
 from repro_torch.federated import (BatchedFLRun, FLRun, make_fleet,
                                    make_scheme, setup_clients)
 
@@ -46,12 +47,9 @@ def heterogeneous_fl(cfg: ModelConfig, devices: int = 4, rounds: int = 10,
     diverges at it within two rounds of 5 local steps)."""
     dev = resolve_device(device)
     runner = BatchedFLRun if engine == "batched" else FLRun
-    imgs, labels = class_gaussian_images(
-        2000, cfg.image_size, cfg.in_channels, cfg.num_classes, seed=0)
-    ti, tl = class_gaussian_images(
-        512, cfg.image_size, cfg.in_channels, cfg.num_classes, seed=99)
-    train = {"images": imgs, "labels": labels}
-    test = {"images": ti, "labels": tl}
+    # the class-Gaussian task at the generator's default noise
+    n = clients or devices
+    train, test, parts = world_data(cfg, n, noniid=not clients, noise=0.7)
     hcfg = HeliosConfig()
     kw = dict(kernels=kernels, device=dev, init_params=init_params)
 
@@ -60,9 +58,7 @@ def heterogeneous_fl(cfg: ModelConfig, devices: int = 4, rounds: int = 10,
             torch.cuda.synchronize()
 
     if clients:
-        n = clients
         nc, ns = n - n // 2, n // 2
-        parts = partition_iid(len(labels), n)
         print(f"== {cfg.name}, {nc} capable + {ns} stragglers, "
               f"engine={engine} ==")
         out = {}
@@ -84,7 +80,6 @@ def heterogeneous_fl(cfg: ModelConfig, devices: int = 4, rounds: int = 10,
         return out
 
     nc = ns = devices // 2
-    parts = partition_noniid(labels, devices, shards_per_client=4)
     print(f"== {cfg.name}, {nc} capable + {ns} stragglers, "
           f"Non-IID=True, engine={engine} ==")
     results = {}

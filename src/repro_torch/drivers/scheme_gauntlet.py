@@ -29,35 +29,12 @@ import torch
 
 from repro_torch.configs import CNNS, HeliosConfig, ModelConfig
 from repro_torch.core import theory
-from repro_torch.data.federated import partition_iid, partition_noniid
-from repro_torch.data.synthetic import class_gaussian_images
 from repro_torch.device import DeviceLike
+from repro_torch.drivers.paper_figures import world_data
 from repro_torch.federated import (SCHEMES, AsyncFLRun, BatchedFLRun,
                                    make_fleet, make_scheme, setup_clients)
 
-#: task difficulty calibrated so convergence takes 10+ rounds (the
-#: reference's setting)
-_NOISE = {"lenet": 6.0, "alexnet": 3.0, "resnet18": 3.0}
 DEFAULT_OUT = os.path.join("chiprun_out", "scheme_gauntlet.json")
-
-
-def _world(cfg: ModelConfig, n_clients: int, noniid: bool = True,
-           seed: int = 0):
-    """(train, test, client partitions) of the class-Gaussian task."""
-    noise = _NOISE.get(cfg.name, 4.0)
-    imgs, labels = class_gaussian_images(
-        2000, cfg.image_size, cfg.in_channels, cfg.num_classes, seed=seed,
-        noise=noise)
-    ti, tl = class_gaussian_images(
-        512, cfg.image_size, cfg.in_channels, cfg.num_classes,
-        seed=seed + 99, noise=noise)
-    if noniid:
-        parts = partition_noniid(labels, n_clients, shards_per_client=4,
-                                 seed=seed)
-    else:
-        parts = partition_iid(len(labels), n_clients, seed=seed)
-    return {"images": imgs, "labels": labels}, \
-        {"images": ti, "labels": tl}, parts
 
 
 def _sorted_leaves(tree):
@@ -96,7 +73,7 @@ def scheme_gauntlet(cfg: Optional[ModelConfig] = None, rounds: int = 12,
     Returns (the table, {scheme: its run}, {scheme: its wall time in s,
     training and evaluation})."""
     cfg = cfg or CNNS["lenet"]
-    train, test, parts = _world(cfg, nc + ns, noniid=True, seed=seed)
+    train, test, parts = world_data(cfg, nc + ns, noniid=True, seed=seed)
     results, runs, walls = {}, {}, {}
     for scheme in SCHEMES:
         sch = make_scheme(scheme)

@@ -58,6 +58,7 @@ from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+from numpy.typing import ArrayLike
 
 from repro_torch import checkpoint as CKPT
 from repro_torch.configs.base import HeliosConfig, ModelConfig
@@ -168,7 +169,10 @@ def _collab_pace(clients: Sequence["Client"]) -> float:
 class Client:
     cid: int
     profile: DeviceProfile
-    data_idx: np.ndarray
+    #: the client's example indices: an array or a lazy partition view
+    #: (``data.federated.*_lazy``), materialized by ``np.asarray`` only
+    #: when its batches are drawn
+    data_idx: ArrayLike
     volume: float = 1.0
     helios_state: Optional[dict] = None
     is_straggler: bool = False
@@ -783,7 +787,7 @@ class FLRun:
         return self.history
 
     # -- elastic membership (§VI.C) ----------------------------------------
-    def add_client(self, profile: DeviceProfile, data_idx: np.ndarray,
+    def add_client(self, profile: DeviceProfile, data_idx: ArrayLike,
                    white_box: bool = True) -> Client:
         """A device joins mid-flight: identify -> assign volume -> admit."""
         cid = max((c.cid for c in self.clients), default=-1) + 1
@@ -1292,7 +1296,7 @@ class BatchedFLRun(AsyncFLRun):
                     self._sstate, len(self._s_idx))):
                 self.clients[i].helios_state = st
 
-    def add_client(self, profile: DeviceProfile, data_idx: np.ndarray,
+    def add_client(self, profile: DeviceProfile, data_idx: ArrayLike,
                    white_box: bool = True) -> Client:
         self.sync_client_states()
         c = super().add_client(profile, data_idx, white_box)
@@ -1306,7 +1310,7 @@ class BatchedFLRun(AsyncFLRun):
 
 
 def setup_clients(profiles: Sequence[DeviceProfile],
-                  parts: Sequence[np.ndarray],
+                  parts: Sequence[ArrayLike],
                   hcfg: HeliosConfig,
                   identification: str = "resource",
                   device: DeviceLike = None) -> List[Client]:
