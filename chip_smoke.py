@@ -126,10 +126,10 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    every call twice, bit-identical; the autograd op (kernel forward,
    recompute backward) against plain autograd;
 4c. the hybrid path: Zamba2-1.2B at full width with its depth cut from 38
-   to 18 Mamba2 layers (three invocations of the shared block),
+   to 12 Mamba2 layers (two invocations of the shared block),
    ``FLRun(..., kernels="cuda").run_sync(2)`` for helios and then syn on
    the LM's fleet and data, with every kernel's counter zeroed before and
-   read after (144 ``ssd_diag`` launches a round, all on 16-byte copies,
+   read after (96 ``ssd_diag`` launches a round, all on 16-byte copies,
    no other kernel); every loss and parameter finite; one training step
    and two rounds of one local step held against the plain path;
 5c. time ``ssd_diag`` by device time and its
@@ -201,7 +201,32 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    (dropout 0.1, jitter 0.3) with both engines' events/s, and
    observability's armed ``BatchedFLRun`` on both paths (its run log's
    rounds equal the run's, client-axis launches, held as the P_s rows
-   are); every plain path and nudged twin launches no masked kernel.
+   are); every plain path and nudged twin launches no masked kernel;
+4n. the last two model families, at their published widths: the masked
+   pair at DeepSeek-V2's dense first layer (4 x 512 tokens, d_model 5120,
+   d_ff 12288; all six layouts at P 0.5 and 1 on ``tile128``) held
+   against its plain version and timed beside its bound, the plain
+   version and ``torch.matmul``; DeepSeek-V2 through ``FLRun`` with the
+   depth cut 60 -> 2 (the dense first layer and one MoE layer) and the
+   routed experts 160 -> 8: helios ``run_sync(2)`` at one local step on
+   the plain path and then the kernel path, each kernel-path step
+   replaying the plain path's expert choices (a flip above a 1e-5 gap
+   fails), 48 masked_matmul and 24 masked_matmul_dk launches and no
+   other, history identical, params within 1e-4, a timed third round of
+   each, the peak, then one step held with a straggler's masks and with
+   full masks; ``make_train_step`` at 2 layers and 16 routed experts,
+   one held step (plain choices replayed) and step walls in turns;
+   serving at 3 layers with all 160 routed experts (batch 8, prompt 512,
+   32 generated; the latent cache padded to 544) and SeamlessM4T-large-v2
+   at full size through the serve CLI (the self cache padded to 544, the
+   cross cache at the encoder's 512), neither launching a kernel, each
+   decode held against a re-prefill at max(1e-4, twice a nudged twin's
+   drift) (DeepSeek-V2 on the capacity-free dense dispatch, its routing
+   flips gated), prefill ms, decode ms a step beside its byte bound, the
+   peak; SeamlessM4T's three ``make_train_step`` steps at batch 8 x 512
+   with 8 x 512 x 1024 stub frame embeddings in two microbatches (one
+   runs out of the card's memory), no kernel, every loss and param
+   finite, step walls and the peak.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and before that the
@@ -244,18 +269,25 @@ LM_LAYERS, LM_BATCH, LM_SEQ, LM_VOCAB = 2, 4, 512, 1024
 #: (label, kernel, M, K, N, x layout, w layout), "col" a transposed view;
 #: tokens 2048, d_model 4096, d_ff 11008
 LM_TOKENS, LM_D, LM_FF = LM_BATCH * LM_SEQ, 4096, 11008
-LM_MLP = (("wi/wg fwd", "masked_matmul", LM_TOKENS, LM_D, LM_FF, "row", "row"),
-          ("wi/wg dw", "masked_matmul", LM_D, LM_TOKENS, LM_FF, "col", "row"),
-          ("wo dh", "masked_matmul", LM_TOKENS, LM_D, LM_FF, "row", "col"),
-          ("wo dwT", "masked_matmul", LM_D, LM_TOKENS, LM_FF, "col", "row"),
-          ("wo fwd", "masked_matmul_dk", LM_TOKENS, LM_FF, LM_D, "row", "row"),
-          ("wi/wg dx", "masked_matmul_dk", LM_TOKENS, LM_FF, LM_D, "row",
-           "col"))
+
+
+def mlp_calls(tokens: int, d: int, ff: int) -> tuple:
+    """A gated MLP's six masked products at ``tokens`` rows, d_model
+    ``d`` and width ``ff``, in the layouts the main path hands over."""
+    return (("wi/wg fwd", "masked_matmul", tokens, d, ff, "row", "row"),
+            ("wi/wg dw", "masked_matmul", d, tokens, ff, "col", "row"),
+            ("wo dh", "masked_matmul", tokens, d, ff, "row", "col"),
+            ("wo dwT", "masked_matmul", d, tokens, ff, "col", "row"),
+            ("wo fwd", "masked_matmul_dk", tokens, ff, d, "row", "row"),
+            ("wi/wg dx", "masked_matmul_dk", tokens, ff, d, "row", "col"))
+
+
+LM_MLP = mlp_calls(LM_TOKENS, LM_D, LM_FF)
 #: the flash kernel's checks: (B, H, S, hd, causal); the first is the slice
 FLASH_CASES = ((LM_BATCH, 32, LM_SEQ, 128, True), (2, 8, 300, 64, True),
                (2, 4, 256, 16, False))
-#: the hybrid slice: Zamba2-1.2B width, depth cut to 18 Mamba2 layers
-HY_LAYERS = 18
+#: the hybrid slice: Zamba2-1.2B width, depth cut to 12 Mamba2 layers
+HY_LAYERS = 12
 #: the ssd_diag kernel's checks: (B, nc, L, ds, nh, hd); the first is the
 #: slice (batch 4 x 512 tokens in chunks of 256)
 SSD_CASES = ((LM_BATCH, 2, 256, 64, 64, 64), (2, 1, 300, 16, 8, 16),
@@ -2350,25 +2382,23 @@ def lm_path(st) -> dict:
     del params
     _free()
     # Two correct paths that sum in another order drift apart along the
-    # trajectory: print the drift over two rounds of 2 local steps beside
+    # trajectory: hold them to 1e-4 over two rounds of one step, and print
     # the plain path's own drift under a 2^-23 nudge of its initial
-    # weights, and hold the paths to 1e-4 over two rounds of one step.
-    for steps in (2, 1):
-        host, hists = {}, {}
-        for name, kernels, nudge in (("cuda", "cuda", 0.0),
-                                     ("plain", "reference", 0.0),
-                                     ("nudged", "reference", 2.0 ** -23)):
-            run = make_lm_run("helios", kernels, st, local_steps=steps,
-                              nudge=nudge)
-            hists[name], _ = timed_run(run, 2)
-            host[name] = _host_params(run)
-            del run
-            _free()
-        diff = _host_diff(host["cuda"], host["plain"])
-        log(f"LM helios 2 rounds x {steps} local steps, lr 0.05: max|param "
-            f"diff| kernel vs plain {diff:.3e}, plain vs nudged plain "
-            f"{_host_diff(host['plain'], host['nudged']):.3e}")
-        del host
+    # weights beside it.
+    host, hists = {}, {}
+    for name, kernels, nudge in (("cuda", "cuda", 0.0),
+                                 ("plain", "reference", 0.0),
+                                 ("nudged", "reference", 2.0 ** -23)):
+        run = make_lm_run("helios", kernels, st, local_steps=1, nudge=nudge)
+        hists[name], _ = timed_run(run, 2)
+        host[name] = _host_params(run)
+        del run
+        _free()
+    diff = _host_diff(host["cuda"], host["plain"])
+    log(f"LM helios 2 rounds x 1 local step, lr 0.05: max|param diff| "
+        f"kernel vs plain {diff:.3e}, plain vs nudged plain "
+        f"{_host_diff(host['plain'], host['nudged']):.3e}")
+    del host
     if not diff <= 1e-4:
         raise AssertionError(f"LM kernel path drifts from the plain path: "
                              f"{diff}")
@@ -2581,7 +2611,8 @@ def check_ssd() -> float:
 
 
 def hybrid_setting():
-    """Zamba2-1.2B at full width, 18 Mamba2 layers, on the LM's data."""
+    """Zamba2-1.2B at full width, ``HY_LAYERS`` Mamba2 layers, on the LM's
+    data."""
     from repro_torch.configs import ZAMBA2_1_2B, HeliosConfig
     from repro_torch.data.federated import partition_by_topic
     from repro_torch.data.synthetic import markov_topic_tokens
@@ -2970,14 +3001,15 @@ def record_routing(run, tap: RouteTap) -> None:
     ad.loss_fn = loss_fn
 
 
-def check_granite_step(st, params, strag_masks) -> None:
-    """One full-size Granite training step, kernel path against plain path
+def check_moe_step(st, params, strag_masks, label: str) -> None:
+    """One full-size MoE training step, kernel path against plain path
     from the same params and batch, the plain path's expert choices
     replayed into the kernel path: loss and every gradient within 1e-4
     relative, with a straggler's Eq. 2 masks and with full masks."""
     from repro_torch.models import make_full_masks, transformer
     from repro_torch.models.module import tree_paths
     cfg, _, train, _, _, _ = st
+    moe_layers = cfg.num_layers - cfg.first_k_dense
     batch = {"tokens": torch.as_tensor(train["tokens"][:LM_BATCH]).cuda()}
     for who, masks in (("straggler", strag_masks),
                        ("capable", make_full_masks(cfg, "cuda"))):
@@ -2995,18 +3027,18 @@ def check_granite_step(st, params, strag_masks) -> None:
                 v.requires_grad_(False)
             out[kernels] = (float(loss.detach()), dict(zip(leaves, grads)))
             del grads, loss
-        tap.report(f"Granite step {who}, plain choices replayed",
-                   cfg.num_layers, cfg.num_experts_per_tok, gate=True)
+        tap.report(f"{label} step {who}, plain choices replayed",
+                   moe_layers, cfg.num_experts_per_tok, gate=True)
         (la, ga), (lb, gb) = out["cuda"], out["reference"]
         finite = all(bool(torch.isfinite(v).all()) for v in ga.values())
         worst, at = max((float((ga[k] - gb[k]).abs().max())
                          / max(float(gb[k].abs().max()), 1e-30), k)
                         for k in gb)
-        log(f"Granite step {who}: loss {la:.7f} vs {lb:.7f}, worst max|grad "
+        log(f"{label} step {who}: loss {la:.7f} vs {lb:.7f}, worst max|grad "
             f"diff|/max|grad| {worst:.3e} ({at}), all finite {finite}")
         if not (finite and abs(la - lb) <= F32_TOL * abs(lb)
                 and worst <= F32_TOL):
-            raise AssertionError(f"Granite {who} step: kernel path disagrees "
+            raise AssertionError(f"{label} {who} step: kernel path disagrees "
                                  f"with the plain path ({worst} at {at})")
         del out, ga, gb, tap
         _free()
@@ -3123,27 +3155,10 @@ def granite_path(st) -> dict:
     params = hel.global_params
     del hel
     _free()
-    check_granite_step(st, params, strag_masks)
+    check_moe_step(st, params, strag_masks, "Granite")
     check_granite_dispatch(st, params, strag_masks)
     del params
     _free()
-    # A routing flip sends a token to another expert, so the unreplayed
-    # paths part by more than rounding: print their drift over two rounds
-    # of 2 local steps beside the plain path's own drift under a 2^-23
-    # nudge of its initial weights.
-    host = {}
-    for name, kernels, nudge in (("cuda", "cuda", 0.0),
-                                 ("plain", "reference", 0.0),
-                                 ("nudged", "reference", 2.0 ** -23)):
-        run = make_lm_run("helios", kernels, st, nudge=nudge)
-        timed_run(run, 2)
-        host[name] = _host_params(run)
-        del run
-        _free()
-    log(f"Granite helios 2 rounds x 2 local steps, lr 0.05, unreplayed: "
-        f"max|param diff| kernel vs plain "
-        f"{_host_diff(host['cuda'], host['plain']):.3e}, plain vs nudged "
-        f"plain {_host_diff(host['plain'], host['nudged']):.3e}")
     # Two rounds of one local step.  After the first aggregation the two
     # runs' params differ by rounding too, and the router amplifies that
     # (its weights move along the hidden states it multiplies), so each
@@ -3382,10 +3397,22 @@ def _serve_readings(srv, params, batch, toks) -> dict:
     p_bytes = sum(v.numel() * v.element_size() for v in tree_leaves(params))
 
     def cache_bytes(node, pos):
+        """What a step at ``pos`` reads: the self-attention leaves (K / V,
+        MLA's latent and RoPE key) up to ``pos``, the rest whole (the SSM
+        states, an encoder-decoder's cross K / V, passed with ``pos``
+        None)."""
         if isinstance(node, dict):
-            return sum(cache_bytes(v, pos) if k not in ("k", "v") else
-                       v.element_size() * v.numel() // v.shape[-3]
-                       * (pos + 1) for k, v in node.items() if k != "pos")
+            total = 0
+            for k, v in node.items():
+                if k == "pos":
+                    continue
+                if pos is not None and k in SV.CACHE_SEQ_AXIS:
+                    ax = SV.CACHE_SEQ_AXIS[k]
+                    total += v.element_size() * v.numel() // v.shape[ax] \
+                        * (pos + 1)
+                else:
+                    total += cache_bytes(v, None if k == "cross" else pos)
+            return total
         if isinstance(node, (list, tuple)):
             return sum(cache_bytes(v, pos) for v in node)
         return node.numel() * node.element_size()
@@ -3781,34 +3808,45 @@ def _rt(kernels: str) -> dict:
     return rt
 
 
-def _hold_step(cfg, hcfg, tcfg, state, batch, host: bool) -> dict:
+def _hold_step(cfg, hcfg, tcfg, state, batch, host: bool, want=None,
+               tap=None) -> dict:
     """One ``make_train_step`` step from ``state`` on each path, the
     kernels' counters zeroed before and read after each; the kernel path
     held to the plain path at 1e-4: loss and gradient norm (relative), the
     new params (absolute), AdamW's first moment and the Eq. 1 scores (per
-    leaf, relative: the clipped gradients).  ``host``: the kernel path's
-    result goes to the host before the plain path runs."""
+    leaf, relative: the clipped gradients).  ``host``: the first path's
+    result goes to the host before the second runs.  ``want``: the kernel
+    path's launches (default: a masked MLP and flash a layer).  ``tap``
+    (a :class:`RouteTap`, MoE): the plain path runs first and its expert
+    choices are replayed into the kernel path."""
     from repro_torch.launch import steps as S
     from repro_torch.models.module import tree_map
     res = {}
-    for kernels in ("cuda", "reference"):
+    order = ("reference", "cuda") if tap else ("cuda", "reference")
+    for kernels in order:
         step = S.make_train_step(cfg, hcfg, tcfg, _rt(kernels))
         _reset_all()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        new, met = step(state, batch)
+        with (tap.use("record" if kernels == "reference" else "replay")
+              if tap else contextlib.nullcontext()):
+            new, met = step(state, batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _all_launches()
         kept = {"params": new["params"], "m": new["opt"]["m"],
                 "scores": new["helios"]["scores"]}
-        if host and kernels == "cuda":
+        if host and kernels == order[0]:
             kept = tree_map(lambda t: t.cpu(), kept)
         res[kernels] = {"loss": float(met["loss"]),
                         "grad_norm": float(met["grad_norm"]),
                         "launches": launches, "step_s": wall, **kept}
         del new, met, kept
         _free()
+    if tap:
+        tap.report(f"launch {cfg.name} one step, plain choices replayed",
+                   cfg.num_layers - cfg.first_k_dense,
+                   cfg.num_experts_per_tok, gate=True)
     k, p = res["cuda"], res["reference"]
     log(f"launch {cfg.name} one step: loss {k['loss']:.7f} vs {p['loss']:.7f},"
         f" grad norm {k['grad_norm']:.6f} vs {p['grad_norm']:.6f}; step "
@@ -3825,7 +3863,7 @@ def _hold_step(cfg, hcfg, tcfg, state, batch, host: bool) -> dict:
     if not all(v <= F32_TOL for v in worst.values()):
         raise AssertionError(f"launch {cfg.name}: the kernel path's step "
                              f"disagrees with the plain path: {worst}")
-    want = _expect(cfg.num_layers, 1)
+    want = want or _expect(cfg.num_layers, 1)
     if k["launches"] != want or any(p["launches"].values()):
         raise AssertionError(f"launch {cfg.name}: launches {k['launches']} "
                              f"(plain {p['launches']}), want {want}")
@@ -4034,6 +4072,21 @@ def launch_kernels(g) -> tuple:
     return times, worst
 
 
+def _add_to_rows(kernels: list, key: str, times: dict, worst: dict,
+                 paths: dict) -> None:
+    """Add each path's launches ({path: {kernel: launches}}) to the rows
+    of ``kernels`` that ``times`` names, and the phase's shapes' times and
+    worst error under ``key``."""
+    for row in kernels:
+        name = row["name"]
+        if name not in times:
+            continue
+        own = {path: n[name] for path, n in paths.items()}
+        row.setdefault("launches_by_path", {}).update(own)
+        row["launches"] += sum(own.values())
+        row[key] = {"shapes": times[name], "max_abs_err": worst[name]}
+
+
 def launch_phase(kernels: list) -> None:
     """Phase 4l; adds the launch paths' launches, its shapes' times and
     errors to the rows of ``kernels``."""
@@ -4048,18 +4101,10 @@ def launch_phase(kernels: list) -> None:
     times, worst = launch_kernels(g)
     log(f"launch kernel checks and times took {time.perf_counter() - t1:.1f}"
         f" s")
-    for row in kernels:
-        name = row["name"]
-        if name not in times:
-            continue
-        paths = {"launch_internvl2_step": vlm["launches"][name],
-                 "launch_internvl2_fl_round": vlm["fl_launches"][name],
-                 "launch_qwen2.5_step": qwen["launches"][name]}
-        row.setdefault("launches_by_path", {})
-        row["launches_by_path"].update(paths)
-        row["launches"] += sum(paths.values())
-        row["launch"] = {"shapes": times[name],
-                         "max_abs_err": worst[name]}
+    _add_to_rows(kernels, "launch", times, worst,
+                 {"launch_internvl2_step": vlm["launches"],
+                  "launch_internvl2_fl_round": vlm["fl_launches"],
+                  "launch_qwen2.5_step": qwen["launches"]})
     log("launch summary " + json.dumps(
         {"xlstm": xl, "internvl2-1b": vlm, "qwen2.5-32b": qwen,
          "serving": serving},
@@ -4419,6 +4464,430 @@ def repro_phase(kernels: list) -> None:
     log(f"phase 4m took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 4n: DeepSeek-V2 (MLA) and SeamlessM4T (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+#: DeepSeek-V2 at its published widths, with the cuts one card needs:
+#: FLRun at 2 of 60 layers (the dense first layer and one MoE layer) and 8
+#: of 160 routed experts (~10 f32 model copies), the launch's train step
+#: at 2 layers and 16 routed experts (~6 copies: params, AdamW's moments,
+#: the new state, the gradients), serving at 3 layers with all 160
+DS_FL = {"num_layers": 2, "num_experts": 8}
+DS_LAUNCH = {"num_layers": 2, "num_experts": 16}
+DS_SERVE = {"num_layers": 3}
+#: the dense first layer's masked MLP at the LM batch (4 x 512 tokens,
+#: d_model 5120, d_ff 12288)
+DS_MLP = mlp_calls(LM_TOKENS, 5120, 12288)
+#: a local step's kernel calls: the dense layer's masked MLP; MLA attends
+#: through attn_impl (no flash: q / k head dim 192), the MoE layer takes
+#: no kernel
+DS_CALLS = {"masked_matmul": 6, "masked_matmul_dk": 3, "flash_attention": 0,
+            "ssd_diag": 0}
+#: SeamlessM4T-large-v2 at full size: launch steps at batch 8 x 512 with
+#: stub frame embeddings 8 x 512 x 1024, in microbatches of 4
+SM_ARCH, SM_BATCH, SM_SEQ, SM_STEPS, SM_MICRO = \
+    "seamless-m4t-large-v2", 8, 512, 3, 2
+
+
+def check_ds_kernels(g) -> tuple:
+    """The masked pair at the dense first layer's six layouts, P = 0.5 and
+    1, against its plain version (f32, twice, bit-identical, on
+    ``tile128``); then the forward calls timed beside their bounds, the
+    plain version and ``torch.matmul``.  Returns ({kernel: {label:
+    times}}, the worst f32 errors)."""
+    worst = {"masked_matmul": 0.0, "masked_matmul_dk": 0.0}
+    for label, kernel, m, k, n, xl, wl in DS_MLP:
+        for p in (0.5, 1.0):
+            fn, plain, x, w, live, dead = _operands(kernel, m, k, n, xl, wl,
+                                                    p, torch.float32, g)
+            err, config = _check_call(f"DeepSeek-V2 {label} M={m} K={k} "
+                                      f"N={n} P={p}", fn, plain, x, w, live,
+                                      dead, BLOCK, torch.float32)
+            if config != "tile128":
+                raise AssertionError(f"DeepSeek-V2 {label} took {config}, "
+                                     f"not tile128")
+            worst[kernel] = max(worst[kernel], err)
+            del x, w, dead
+    _free()
+    times = {k: {} for k in worst}
+    for label, kernel, m, k, n, xl, wl in DS_MLP:
+        if label not in ("wi/wg fwd", "wo fwd"):
+            continue
+        for p in (0.5, 1.0):
+            t = _time_call(f"DeepSeek-V2 {label}", kernel, m, k, n, xl, wl, p,
+                           g, 1)
+            times[kernel][f"{label} P={p}"] = {"shape": [m, k, n], **t}
+            _free()
+    _reset_all()
+    return times, worst
+
+
+def ds_setting():
+    """DeepSeek-V2 with ``DS_FL``'s cuts on the LM's data and fleet."""
+    from repro_torch.configs import DEEPSEEK_V2_236B, HeliosConfig
+    from repro_torch.data.federated import partition_by_topic
+    from repro_torch.data.synthetic import markov_topic_tokens
+    from repro_torch.models import init_params
+    from repro_torch.models.module import tree_leaves
+    cfg = dataclasses.replace(DEEPSEEK_V2_236B, **DS_FL)
+    tokens, topics = markov_topic_tokens(256, LM_SEQ, LM_VOCAB, n_topics=8)
+    test_tokens, _ = markov_topic_tokens(16, LM_SEQ, LM_VOCAB, n_topics=8,
+                                         seed=9)
+    parts = partition_by_topic(topics, 4, topics_per_client=2)
+    t0 = time.perf_counter()
+    init = init_params(cfg, 0, "cpu")        # host copy, reused by every run
+    n = sum(v.numel() for v in tree_leaves(init))
+    log(f"DeepSeek-V2 config: published widths (d_model {cfg.d_model}, "
+        f"{cfg.num_heads} MLA heads, q / kv latent {cfg.q_lora_rank} / "
+        f"{cfg.kv_lora_rank}, q-k head dims {cfg.qk_nope_head_dim} + "
+        f"{cfg.qk_rope_head_dim}, v {cfg.v_head_dim}, dense d_ff {cfg.d_ff}, "
+        f"experts of {cfg.moe_d_ff}, {cfg.num_shared_experts} shared, top-"
+        f"{cfg.num_experts_per_tok}, vocab {cfg.vocab_size}); depth cut "
+        f"{DEEPSEEK_V2_236B.num_layers} -> {cfg.num_layers}, routed experts "
+        f"{DEEPSEEK_V2_236B.num_experts} -> {cfg.num_experts}; {n / 1e9:.4f}"
+        f" B params drawn in {time.perf_counter() - t0:.1f} s; batch "
+        f"{LM_BATCH} x {LM_SEQ} tokens, a 2 + 2 Table-I fleet, lr 0.05")
+    return cfg, HeliosConfig(mask_block=BLOCK), {"tokens": tokens}, \
+        {"tokens": test_tokens}, parts, init
+
+
+def ds_path(st) -> dict:
+    """Helios ``run_sync(2)`` at one local step on the plain path and then
+    the kernel path, each kernel-path step replaying the plain path's
+    expert choices from the same params; the kernel run's launches
+    counted; history, straggler ratios and params held; a third round of
+    each run (evaluation off, routing its own) timed; then the one-step
+    hold with a straggler's masks and with full masks."""
+    cfg = st[0]
+    torch.cuda.reset_peak_memory_stats()
+    hists, host, walls, tap, cross = {}, {}, {}, RouteTap(), RouteTap()
+    launches, strag_masks, params = {}, None, None
+    for name, kernels in (("plain", "reference"), ("cuda", "cuda")):
+        run = make_lm_run("helios", kernels, st, local_steps=1)
+        own_loss = run.adapter.loss_fn
+        if name == "plain":
+            record_routing(run, cross)
+        else:
+            shadow_plain_routing(run, tap, cross)
+        _reset_all()
+        hists[name], wall = timed_run(run, 2)
+        launches[name] = _all_launches()
+        log(f"DeepSeek-V2 helios {name}: 2 rounds x 1 local step in "
+            f"{wall:.3f} s (the kernel path's with the plain forward that "
+            f"records its routing); launches {json.dumps(launches[name])}")
+        for row in hists[name]:
+            log("  history", json.dumps(row))
+        host[name] = _host_params(run)
+        if not all(bool(torch.isfinite(v).all()) for v in host[name].values()):
+            raise AssertionError(f"DeepSeek-V2 {name}: non-finite params")
+        run.adapter.loss_fn = own_loss
+        _, walls[name] = timed_run(run, 1, eval_every=0)
+        if name == "cuda":
+            strag = [r for c, r in zip(run.clients, hists[name][-1]["ratios"])
+                     if c.is_straggler]
+            if not strag or max(strag) >= 1.0:
+                raise AssertionError(f"DeepSeek-V2 straggler ratios not below"
+                                     f" 1: {strag}")
+            strag_masks = next(c for c in run.clients
+                               if c.is_straggler).helios_state["masks"]
+            params = run.global_params
+        del run
+        _free()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: v * 4 * 2 for k, v in DS_CALLS.items()}
+    log(f"DeepSeek-V2 round wall (a third round, evaluation off): kernel "
+        f"{walls['cuda']:.3f} s, plain {walls['plain']:.3f} s; peak "
+        f"{peak:.2f} GiB")
+    if launches["cuda"] != want or any(launches["plain"].values()):
+        raise AssertionError(f"DeepSeek-V2 launches {launches}, want {want} "
+                             f"on the kernel path (the dense first layer's "
+                             f"masked MLP) and none on the plain path")
+    if peak > GR_PEAK_GIB:
+        raise AssertionError(f"DeepSeek-V2 path peak {peak:.2f} GiB passes "
+                             f"{GR_PEAK_GIB} GiB")
+    k = cfg.num_experts_per_tok
+    moe_layers = cfg.num_layers - cfg.first_k_dense
+    tap.report("DeepSeek-V2 helios 2 rounds x 1 local step, each step's "
+               "plain choices replayed into the kernel path", moe_layers, k,
+               gate=True)
+    cross.report("DeepSeek-V2 helios 2 rounds x 1 local step, the plain "
+                 "run's choices against the plain path's on the kernel "
+                 "run's params (ungated)", moe_layers, k, gate=False)
+    diff = _host_diff(host["cuda"], host["plain"])
+    log(f"DeepSeek-V2 helios 2 rounds x 1 local step: max|param diff| "
+        f"kernel vs plain {diff:.3e}")
+    del host
+    for x, y in zip(hists["cuda"], hists["plain"]):
+        for key in ("cycle", "time", "volumes", "ratios"):
+            if x[key] != y[key]:
+                raise AssertionError(f"DeepSeek-V2 history {key} differs: "
+                                     f"{x[key]} vs {y[key]}")
+        if abs(x["ce"] - y["ce"]) > F32_TOL or \
+                abs(x["loss"] - y["loss"]) > F32_TOL:
+            raise AssertionError(f"DeepSeek-V2 history differs: {x} vs {y}")
+    if not diff <= F32_TOL:
+        raise AssertionError(f"DeepSeek-V2 kernel path drifts from the plain "
+                             f"path: {diff}")
+    check_moe_step(st, params, strag_masks, "DeepSeek-V2")
+    del params, strag_masks
+    _free()
+    return {"launches": launches["cuda"], "round_wall_s": walls,
+            "peak_gib": peak, "hold": diff}
+
+
+def ds_launch(g) -> dict:
+    """``make_train_step`` at ``DS_LAUNCH``: one held step on each path
+    (the plain path's expert choices replayed into the kernel path), then
+    step walls in turns: three steps a path."""
+    from repro_torch.configs import DEEPSEEK_V2_236B
+    from repro_torch.models.module import tree_leaves
+    cfg = dataclasses.replace(DEEPSEEK_V2_236B, **DS_LAUNCH)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    hcfg, tcfg, state, batch = _launch_setting(cfg, LM_BATCH, LM_SEQ, g)
+    n_params = sum(v.numel() for v in tree_leaves(state["params"]))
+    out = {"params_b": n_params / 1e9, "tokens": LM_BATCH * LM_SEQ}
+    out.update(_hold_step(cfg, hcfg, tcfg, state, batch, host=True,
+                          want=dict(DS_CALLS), tap=RouteTap()))
+    out["walls"] = _step_walls(cfg, hcfg, tcfg, state, batch)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["seconds"] = time.perf_counter() - t0
+    log(f"launch {cfg.name} ({cfg.num_layers} layers, {cfg.num_experts} "
+        f"routed experts, {out['params_b']:.4f} B params): step walls "
+        f"{json.dumps(out['walls'])}; peak {out['peak_gib']:.2f} GiB; "
+        f"{out['seconds']:.1f} s")
+    del state, batch
+    _free()
+    return out
+
+
+def _check_cache(label: str, srv, params, batch, cfg) -> None:
+    """The padded cache's layout: MLA's latent and RoPE key (no K / V) at
+    the prompt plus the generated tokens; an encoder-decoder's self K / V
+    there and its cross K / V at the encoder's length."""
+    from repro_torch.launch import serve as SV
+    _, cache = srv.prefill(params, batch)
+    cache = SV.pad_cache(cache, SERVE_PROMPT + SERVE_GEN)
+    if cfg.use_mla:
+        shapes = [{k: tuple(v.shape) for k, v in c.items()}
+                  for c in cache["kv"]]
+        ok = all(set(c) == {"c_kv", "k_rope"}
+                 and c["c_kv"][-2] == SERVE_PROMPT + SERVE_GEN
+                 and c["c_kv"][-1] == cfg.kv_lora_rank
+                 and c["k_rope"][-1] == cfg.qk_rope_head_dim for c in shapes)
+    else:
+        shapes = {w: tuple(cache["kv"][w]["k"].shape)
+                  for w in ("self", "cross")}
+        ok = shapes["self"][-3] == SERVE_PROMPT + SERVE_GEN and \
+            shapes["cross"][-3] == SERVE_PROMPT
+    log(f"serve {label}: padded cache {shapes}")
+    if not ok:
+        raise AssertionError(f"serve {label}: cache layout {shapes}")
+    del cache
+
+
+def _serve_hold(label: str, cfg, srv, params, batch, toks) -> dict:
+    """The last decode step against one prefill over the same tokens at
+    max(1e-4, twice a 2^-23-nudged twin's drift), a MoE model on the
+    capacity-free dense dispatch with its routing flips gated; the
+    readings (prefill ms, decode ms a step beside its byte bound); the
+    params are nudged in place at the end."""
+    from repro_torch.launch import serve as SV
+    steps = SERVE_GEN - 1
+    hold = srv
+    if cfg.family == "moe":
+        hold = SV.GenerationServer(cfg, SERVE_BATCH, SERVE_PROMPT,
+                                   gen=SERVE_GEN, kernels="cuda")
+        hold.rt["moe_impl"] = "dense"
+    dec_log, full_log = _RouterLog(), _RouterLog()
+    with dec_log.use():
+        _, dec = _forced(hold, params, batch, toks, steps)
+    with full_log.use():
+        full = _full_prefill(hold, params, batch, toks, steps)
+    if not all(bool(torch.isfinite(x).all()) for x in dec + [full]):
+        raise AssertionError(f"serve {label}: non-finite logits")
+    consistency = _max_diff(dec[-1], full)
+    if cfg.family == "moe":
+        _routing_flips(dec_log, full_log, cfg.num_layers - cfg.first_k_dense,
+                       cfg.num_experts_per_tok, SERVE_PROMPT + steps)
+    del dec, dec_log, full_log
+    _check_cache(label, srv, params, batch, cfg)
+    readings = _serve_readings(srv, params, batch, toks)
+    _nudge(params, 1.0 + 2.0 ** -23)
+    drift = _max_diff(_full_prefill(hold, params, batch, toks, steps), full)
+    gate = max(F32_TOL, 2 * drift)
+    log(f"serve {label}: last decode step against one prefill over the "
+        f"same {SERVE_PROMPT + steps} tokens {consistency:.3e}; nudged drift"
+        f" {drift:.3e}; gate {gate:.3e}; prefill "
+        f"{readings['prefill_ms']:.3f} ms, decode "
+        f"{readings['decode_ms_per_token']:.4f} ms a step (byte bound "
+        f"{readings['decode_bound_ms']:.4f} ms: params "
+        f"{readings['param_gb']:.3f} GB + live cache), profiled step "
+        f"{readings['profiled_decode_step_ms']:.3f} ms, idle share "
+        f"{readings['decode_idle_share']:.4f}"
+        + (" (moe_impl dense)" if cfg.family == "moe" else ""))
+    if not consistency <= gate:
+        raise AssertionError(f"serve {label}: decode disagrees with a "
+                             f"re-prefill: {consistency} > {gate}")
+    del hold, full
+    return {"consistency": consistency, "drift": drift, "gate": gate,
+            **readings}
+
+
+def ds_serving() -> dict:
+    """DeepSeek-V2 at ``DS_SERVE`` through ``GenerationServer`` at the 4k
+    cell (the serve CLI takes whole configs): greedy generation with the
+    counters zeroed before and read after (no kernel: serving attends
+    through attn_impl and runs the plain MLP), then the hold."""
+    from repro_torch.configs import DEEPSEEK_V2_236B
+    from repro_torch.data.synthetic import markov_tokens
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import init_params
+    from repro_torch.models.module import tree_leaves
+    import numpy as np
+    cfg = dataclasses.replace(DEEPSEEK_V2_236B, **DS_SERVE)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, "cuda")
+    n_params = sum(v.numel() for v in tree_leaves(params))
+    log(f"serve DeepSeek-V2: {cfg.num_layers} of "
+        f"{DEEPSEEK_V2_236B.num_layers} layers, all {cfg.num_experts} routed "
+        f"experts, {n_params / 1e9:.4f} B params drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    srv = SV.GenerationServer(cfg, SERVE_BATCH, SERVE_PROMPT, gen=SERVE_GEN,
+                              kernels="cuda")
+    batch = SV.serve_batch(markov_tokens(SERVE_BATCH, SERVE_PROMPT,
+                                         cfg.padded_vocab, seed=0), "cuda",
+                           cfg, np.random.default_rng(0))
+    _reset_all()
+    toks = srv(params, batch)
+    launches = _all_launches()
+    log(f"serve DeepSeek-V2: launches {json.dumps(launches)}; tokens[0][:8] "
+        f"{toks[0, :8].tolist()}")
+    if any(launches.values()):
+        raise AssertionError(f"serve DeepSeek-V2 launches {launches}")
+    out = {"layers": cfg.num_layers, "params_b": n_params / 1e9,
+           **_serve_hold("DeepSeek-V2", cfg, srv, params, batch, toks)}
+    out.update(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               seconds=time.perf_counter() - t0)
+    log(f"serve DeepSeek-V2: peak {out['peak_gib']:.2f} GiB; "
+        f"{out['seconds']:.1f} s")
+    del params, srv, batch, toks
+    _free()
+    return out
+
+
+def seamless_launch() -> dict:
+    """SeamlessM4T at full size: ``SM_STEPS`` ``make_train_step`` steps
+    (AdamW, Helios at volume 0.5) at ``SM_BATCH`` x ``SM_SEQ`` on
+    ``launch.train.make_batch``'s batches: no kernel launched, every loss
+    and param finite; step walls and the peak."""
+    import numpy as np
+    from repro_torch.configs import (SEAMLESS_M4T_LARGE_V2, HeliosConfig,
+                                     TrainConfig)
+    from repro_torch.core import soft_train as ST
+    from repro_torch.data.synthetic import markov_tokens
+    from repro_torch.launch import steps as S
+    from repro_torch.launch import train as TR
+    from repro_torch.models.module import tree_leaves
+    cfg = SEAMLESS_M4T_LARGE_V2
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    hcfg = HeliosConfig(contribution="grad_ema", mask_block=BLOCK)
+    tcfg = TrainConfig(**HOLD_TCFG, microbatches=SM_MICRO)
+    state = S.init_train_state(0, cfg, hcfg, tcfg, "cuda")
+    state["helios"] = ST.begin_cycle(ST.set_volume(state["helios"], 0.5),
+                                     hcfg)
+    n_params = sum(v.numel() for v in tree_leaves(state["params"]))
+    data = markov_tokens(64, SM_SEQ + 1, cfg.padded_vocab)
+    rng = np.random.default_rng(0)
+    step = S.make_train_step(cfg, hcfg, tcfg, _rt("cuda"))
+    walls, losses = [], []
+    _reset_all()
+    for _ in range(SM_STEPS):
+        batch = TR.make_batch(cfg, data, rng, SM_BATCH, SM_SEQ, "cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, met = step(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t1)
+        losses.append(float(met["loss"]))
+    launches = _all_launches()
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in tree_leaves(state["params"]))
+    out = {"params_b": n_params / 1e9, "losses": losses, "step_s": walls,
+           "launches": launches,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "seconds": time.perf_counter() - t0}
+    log(f"launch {cfg.name} (full size: {cfg.enc_layers} + {cfg.dec_layers} "
+        f"layers, {out['params_b']:.4f} B params; batch {SM_BATCH} x "
+        f"{SM_SEQ} with frame embeddings {SM_BATCH} x {SM_SEQ} x "
+        f"{cfg.d_model}, {SM_MICRO} microbatches): losses {losses}, step "
+        f"walls {walls}; launches {json.dumps(launches)}; peak "
+        f"{out['peak_gib']:.2f} GiB")
+    if any(launches.values()) or not finite or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"launch {cfg.name}: launches {launches}, "
+                             f"finite params {finite}, losses {losses}")
+    del state, step
+    _free()
+    return out
+
+
+def seamless_serving() -> dict:
+    """SeamlessM4T at full size through the serve CLI at the 4k cell: no
+    kernel launched; the self cache padded, the cross cache at the
+    encoder's 512 frames; the hold."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    rep = _serve_cli(SM_ARCH, "cuda")
+    cfg, params, batch = rep["cfg"], rep["params"], rep["batch"]
+    toks, srv = rep["tokens"], rep["server"]
+    log(f"serve {SM_ARCH}: CLI prefill {rep['prefill_s']:.3f} s, decode "
+        f"{rep['decode_s']:.3f} s for {SERVE_GEN - 1} steps; launches "
+        f"{json.dumps(rep['launches'])}; frame embeddings "
+        f"{tuple(batch['enc_embeds'].shape)}")
+    if any(rep["launches"].values()) or \
+            not bool(torch.isfinite(rep["prefill_logits"]).all()):
+        raise AssertionError(f"serve {SM_ARCH}: launches {rep['launches']} "
+                             f"or non-finite prefill logits")
+    del rep
+    out = _serve_hold(SM_ARCH, cfg, srv, params, batch, toks)
+    out.update(peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               seconds=time.perf_counter() - t0)
+    log(f"serve {SM_ARCH}: peak {out['peak_gib']:.2f} GiB; "
+        f"{out['seconds']:.1f} s")
+    del params, srv, batch, toks
+    _free()
+    return out
+
+
+def families_phase(kernels: list) -> None:
+    """Phase 4n; adds DeepSeek-V2's masked-pair launches and its shape's
+    times and errors to the rows of ``kernels``."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(51)
+    times, worst = check_ds_kernels(g)
+    st = ds_setting()
+    fl = ds_path(st)
+    del st
+    _free()
+    launch = ds_launch(g)
+    serving = ds_serving()
+    sm_launch = seamless_launch()
+    sm_serving = seamless_serving()
+    _add_to_rows(kernels, "deepseek_v2", times, worst,
+                 {"deepseek_v2_flrun": fl["launches"],
+                  "deepseek_v2_launch_step": launch["launches"]})
+    log("families summary " + json.dumps(
+        {"deepseek_v2_flrun": fl, "deepseek_v2_launch": launch,
+         "deepseek_v2_serving": serving, "seamless_launch": sm_launch,
+         "seamless_serving": sm_serving},
+        default=lambda v: round(v, 6) if isinstance(v, float) else str(v)))
+    log(f"phase 4n took {time.perf_counter() - t0:.1f} s")
+
+
 def _device_us(e) -> float:
     """Self device time of a profiler row (the attribute was renamed)."""
     t = getattr(e, "self_device_time_total", None)
@@ -4451,16 +4920,23 @@ def main() -> int:
             if "registers" in ln or "spill" in ln:
                 log(f"  {name}: {ln.strip()}")
 
+    def mark(what: str) -> None:
+        log(f"[{time.perf_counter() - start:.1f} s] {what} done")
+
+    mark("build")
     worst = check_kernels()
     st = setting()
     launches = main_path(st)
     time_rounds(st)
+    mark("phases 3, 4, 5")
     async_launches = async_path(st)
     cohort_launches = cohort_path(six_client_setting(st))
+    mark("phases 4d, 4e")
     client_worst = check_client_kernels()
     batched_launches = batched_path(st)
     time_batched_rounds(st)
     population = population_path(st)
+    mark("phases 3d, 4g")
     scheme_launches = schemes_path(st)
     comp_launches = compression_path(st)
     client_kernels = time_client_kernels(
@@ -4472,6 +4948,7 @@ def main() -> int:
     _free()
     resnet_path()
     _free()
+    mark("phases 4i, 4j, 4f")
 
     flash_worst = check_flash()
     lm_st = lm_setting()
@@ -4489,6 +4966,7 @@ def main() -> int:
     time_lm_round(lm_st)
     del lm_st
     _free()
+    mark("phases 3b, 4b, 5b")
 
     ssd_worst = check_ssd()
     hy_st = hybrid_setting()
@@ -4498,17 +4976,25 @@ def main() -> int:
     time_hybrid_round(hy_st)
     del hy_st
     _free()
+    mark("phases 3c, 4c, 5c")
 
     granite_phase(kernels)
     _free()
+    mark("phases 3e, 4h, 5d")
 
     serve_phase(kernels)
     _free()
+    mark("phase 4k")
 
     launch_phase(kernels)
     _free()
+    mark("phase 4l")
 
     repro_phase(kernels)
+    _free()
+    mark("phase 4m")
+
+    families_phase(kernels)
 
     log(f"chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))

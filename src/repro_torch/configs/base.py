@@ -2,8 +2,10 @@
 """Configuration dataclasses for the PyTorch port (the fields its slices read).
 
 * :class:`ModelConfig`  — architecture of a paper-testbed CNN, a dense or
-  MoE LM, the Mamba2 + shared-attention hybrid, the xLSTM stack or the VLM
-  (a dense LM behind a stub image prefix).
+  MoE LM (with DeepSeek-V2's latent attention, MLA), the Mamba2 +
+  shared-attention hybrid, the xLSTM stack, the VLM (a dense LM behind a
+  stub image prefix) or the encoder-decoder (SeamlessM4T's backbone
+  behind a stub audio frontend).
 * :class:`HeliosConfig` — the paper's soft-training knobs (Sections IV-VI).
 * :class:`TrainConfig`  — the training launch's optimizer, precision and
   microbatching.
@@ -29,7 +31,7 @@ def _round_up(x: int, m: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """Architecture description; ``family`` is ``cnn``, ``dense``, ``moe``,
-    ``hybrid``, ``ssm`` (xLSTM) or ``vlm``.
+    ``hybrid``, ``ssm`` (xLSTM), ``vlm`` or ``encdec``.
 
     The LM sizes have no default in the reference; here they default to 0
     so the CNN configs need not name them."""
@@ -57,8 +59,13 @@ class ModelConfig:
     moe_d_ff: int = 0                      # per-expert hidden size
     first_k_dense: int = 0                 # leading dense layers (DeepSeek-V2)
 
-    # ---- MLA (DeepSeek-V2): not ported; the LM refuses it ----
+    # ---- MLA (DeepSeek-V2) ----
     use_mla: bool = False
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
 
     # ---- SSM / hybrid (Mamba2, Zamba2) ----
     ssm_state: int = 0
@@ -69,6 +76,10 @@ class ModelConfig:
 
     # ---- xLSTM ----
     slstm_layers: Tuple[int, ...] = ()     # indices that are sLSTM (rest mLSTM)
+
+    # ---- enc-dec ----
+    enc_layers: int = 0
+    dec_layers: int = 0
 
     # ---- VLM ----
     num_image_tokens: int = 0              # stub frontend: precomputed patch embeds
@@ -87,6 +98,10 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         """Vocab rounded up to a multiple of 128, as the reference pads it."""
         return _round_up(self.vocab_size, 128)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.family == "encdec"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -10,7 +10,8 @@ generation bench):
   Helios masks.  The prefill cache is padded once to the prompt plus the
   generated tokens, so every decode step writes its own slot (the
   reference decodes into a cache as long as the prompt and its clamped
-  writes overwrite the last slot: ROADMAP §3).  As in the reference's
+  writes overwrite the last slot: ROADMAP §3); an encoder-decoder's
+  cross-attention cache keeps the encoder's length.  As in the reference's
   code, attention takes ``rt["attn_impl"]`` and the MLP its plain form;
   ``kernels="cuda"`` reaches the hybrid's prefill, whose chunked SSD runs
   ``ssd_diag``.
@@ -68,26 +69,48 @@ def serve_batch(prompts: np.ndarray, device: DeviceLike = None,
                 ) -> Dict[str, torch.Tensor]:
     """The model-input dict of a prompt batch (B, S) on ``device``; a VLM
     ``cfg`` adds its stub image prefix, ``image_embeds`` (B,
-    num_image_tokens, d_model) drawn from ``rng`` as the reference draws
-    it."""
+    num_image_tokens, d_model), an encoder-decoder ``cfg`` its stub frame
+    embeddings, ``enc_embeds`` (B, S, d_model), each drawn from ``rng`` as
+    the reference draws it."""
     dev = resolve_device(device)
     batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
                                        device=dev)}
+    n, s = batch["tokens"].shape
     if cfg is not None and cfg.family == "vlm":
-        n = batch["tokens"].shape[0]
         batch["image_embeds"] = torch.as_tensor(
             rng.normal(size=(n, cfg.num_image_tokens, cfg.d_model)),
             dtype=torch.float32, device=dev)
+    elif cfg is not None and cfg.family == "encdec":
+        batch["enc_embeds"] = torch.as_tensor(
+            rng.normal(size=(n, s, cfg.d_model)), dtype=torch.float32,
+            device=dev)
     return batch
 
 
+#: cache leaf name -> the axis its sequence runs along, counted from the
+#: end: attention K / V (..., S, KV, hd) and MLA's latent and RoPE key
+#: (..., S, width)
+CACHE_SEQ_AXIS = {"k": -3, "v": -3, "c_kv": -2, "k_rope": -2}
+
+
 def pad_cache(cache, length: int):
-    """The cache with every attention ``k`` / ``v`` leaf zero-padded along
-    its sequence axis (-3) to ``length`` positions (new tensors)."""
+    """The cache with every self-attention leaf (``k`` / ``v``, MLA's
+    ``c_kv`` / ``k_rope``) zero-padded along its sequence axis to
+    ``length`` positions (new tensors).  An encoder-decoder's ``cross``
+    K / V keep the encoder's length: cross-attention masks no key, so a
+    padded one would take probability mass."""
     if isinstance(cache, dict):
-        return {k: (F.pad(v, (0, 0, 0, 0, 0, length - v.shape[-3]))
-                    if k in ("k", "v") else pad_cache(v, length))
-                for k, v in cache.items()}
+        out = {}
+        for k, v in cache.items():
+            if k == "cross":
+                out[k] = v
+            elif k in CACHE_SEQ_AXIS:
+                pad = [0, 0] * (-CACHE_SEQ_AXIS[k])
+                pad[-1] = length - v.shape[CACHE_SEQ_AXIS[k]]
+                out[k] = F.pad(v, pad)
+            else:
+                out[k] = pad_cache(v, length)
+        return out
     if isinstance(cache, list):
         return [pad_cache(v, length) for v in cache]
     return cache

@@ -49,7 +49,10 @@ _FAMILY_KERNELS = {"dense": "masked_matmul / masked_matmul_dk, "
                             "flash_attention",
                    "vlm": "masked_matmul / masked_matmul_dk, "
                           "flash_attention",
-                   "moe": "flash_attention", "hybrid": "ssd_diag",
+                   "moe": "flash_attention (none under MLA), and "
+                          "masked_matmul / masked_matmul_dk on a leading "
+                          "dense layer",
+                   "hybrid": "ssd_diag",
                    "cnn": "masked_matmul / masked_matmul_dk"}
 
 

@@ -69,8 +69,15 @@ def restore_state(directory: str, state: dict,
 
 def make_batch(cfg, data: np.ndarray, rng: np.random.Generator, batch: int,
                seq: int, device) -> dict:
-    """One training batch, drawn as the reference draws it."""
+    """One training batch, drawn as the reference draws it: the row
+    indices, then a VLM's stub image embeddings or an encoder-decoder's
+    stub frame embeddings ``enc_embeds`` (batch, seq, d_model)."""
     idx = rng.integers(0, len(data), batch)
+    if cfg.family == "encdec":
+        return {"tokens": torch.as_tensor(data[idx, :seq], device=device),
+                "enc_embeds": torch.as_tensor(
+                    rng.normal(size=(batch, seq, cfg.d_model)),
+                    dtype=torch.float32, device=device)}
     if cfg.family == "vlm":
         n_img = cfg.num_image_tokens
         return {"tokens": torch.as_tensor(data[idx, :seq - n_img],
@@ -154,7 +161,8 @@ def main(argv=None, report: Optional[dict] = None):
                        {"arch": cfg.name, "loss": float(losses[-1])})
     losses = [float(x) for x in losses]
     seconds = time.perf_counter() - t0
-    if args.ckpt_dir:
+    # the final state, unless the loop has just saved this step
+    if args.ckpt_dir and latest_step(args.ckpt_dir) != args.steps:
         save_state(args.ckpt_dir, args.steps, state, rng, {"arch": cfg.name})
     if losses:
         first = np.mean(losses[:5]) if len(losses) >= 5 else losses[0]

@@ -1,6 +1,7 @@
 """Model API of the port: family dispatch (the paper CNNs, the dense, MoE
-and VLM LMs, the Mamba2 + shared-attention hybrid and xLSTM), with the
-token-LM families' prefill and decode for serving."""
+and VLM LMs, DeepSeek-V2's latent attention among them, the Mamba2 +
+shared-attention hybrid, xLSTM and the encoder-decoder), with every LM
+family's prefill and decode for serving."""
 from __future__ import annotations
 
 import dataclasses
@@ -10,7 +11,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.models import cnn, hybrid, transformer, xlstm
+from repro_torch.models import cnn, encdec, hybrid, transformer, xlstm
 from repro_torch.models import module as M
 
 
@@ -32,6 +33,10 @@ def build(cfg: ModelConfig) -> ModelAPI:
         return ModelAPI(cfg, transformer.lm_spec(cfg), transformer.lm_loss,
                         transformer.lm_prefill, transformer.lm_decode,
                         transformer.mask_schema(cfg))
+    if cfg.family == "encdec":
+        return ModelAPI(cfg, encdec.encdec_spec(cfg), encdec.encdec_loss,
+                        encdec.encdec_prefill, encdec.encdec_decode,
+                        encdec.mask_schema(cfg))
     if cfg.family == "hybrid":
         return ModelAPI(cfg, hybrid.hybrid_spec(cfg), hybrid.hybrid_loss,
                         hybrid.hybrid_prefill, hybrid.hybrid_decode,
@@ -43,10 +48,7 @@ def build(cfg: ModelConfig) -> ModelAPI:
     if cfg.family == "cnn":
         return ModelAPI(cfg, cnn.cnn_spec(cfg), cnn.cnn_loss, None, None,
                         cnn.cnn_mask_schema(cfg))
-    raise NotImplementedError(
-        f"the port has the cnn, dense, moe, vlm, hybrid and ssm families, "
-        f"not {cfg.family!r}; encdec (SeamlessM4T) waits (ROADMAP.md, "
-        f"modules to port, item 15)")
+    raise ValueError(f"unknown model family {cfg.family!r}")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,

@@ -21,11 +21,19 @@ carries ``image_embeds`` (B, num_image_tokens, d), placed before the token
 embeddings inside the one causal sequence (flash attends over both), with
 a zero loss mask; the loss scores text positions only.
 
+DeepSeek-V2 (``use_mla``) attends through Multi-head Latent Attention
+(:mod:`repro_torch.models.mla`) in every block, as the reference does:
+through ``rt["attn_impl"]`` even under ``kernels="cuda"``, so MLA reaches
+no kernel; its dense first layer's masked MLP does (the masked-matmul
+pair).
+
 Serving (:func:`lm_prefill`, :func:`lm_decode`) follows the reference's
 code: attention takes ``rt["attn_impl"]`` and the MLP its plain masked
-form, so neither reaches a kernel.  The cache is ``{"kv": [one {"k", "v"}
-a stack, each (L, B, S, KV, hd)], "pos": host int}``; decode writes each
-layer's new K / V into it in place.
+form, so neither reaches a kernel.  The cache is ``{"kv": [one dict a
+stack], "pos": host int}``: ``{"k", "v"}`` each (L, B, S, KV, hd), or
+under MLA the latent ``{"c_kv": (L, B, S, kv_rank), "k_rope": (L, B, S,
+rope)}``, which decode reads in the absorbed form; decode writes each
+layer's new entries into it in place.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
-from repro_torch.models import moe
+from repro_torch.models import mla, moe
 from repro_torch.models.module import stack, unstack
 
 # ---------------------------------------------------------------------------
@@ -45,18 +53,23 @@ from repro_torch.models.module import stack, unstack
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe", "vlm") or cfg.use_mla:
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"the port's LM has the dense, MoE and VLM families, got "
-            f"{cfg.family!r} (use_mla={cfg.use_mla}); MLA waits "
-            f"(ROADMAP.md, modules to port, item 9)")
+            f"the decoder-only LM has the dense, MoE and VLM families, got "
+            f"{cfg.family!r}")
+
+
+def _attn_spec(cfg: ModelConfig):
+    if cfg.use_mla:
+        return mla.mla_spec(cfg)
+    return L.attention_spec(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                            cfg.resolved_head_dim, cfg.qkv_bias)
 
 
 def _block_spec(cfg: ModelConfig, kind: str):
     spec = {
         "attn_norm": L.norm_spec(cfg.d_model, cfg.norm),
-        "attn": L.attention_spec(cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                                 cfg.resolved_head_dim, cfg.qkv_bias),
+        "attn": _attn_spec(cfg),
         "mlp_norm": L.norm_spec(cfg.d_model, cfg.norm),
     }
     if kind == "moe":
@@ -125,30 +138,38 @@ def _stack_masks(masks, name: str, kind: str, n_layers: int):
 def _block_fwd(p, x, positions, cfg, rt, *, kind: str, head_mask=None,
                mlp_mask=None, expert_mask=None, mode: str = "train",
                cache=None, pos=None):
-    """One pre-norm block; returns (x, its K / V or None in training).
+    """One pre-norm block; returns (x, its cache entries or None in
+    training).
 
-    ``mode``: train | prefill (also returns the block's K / V) | decode
-    (writes the token's K / V into ``cache`` at ``pos``).  In training
-    ``rt["kernels"] == "cuda"`` routes the causal self-attention through
-    the flash kernel (unless the runtime asks for the chunked lowering)
-    and the masked MLP through the masked-matmul pair; serving takes
-    ``rt["attn_impl"]`` and the plain MLP, as the reference's code does.
-    The MoE block takes no kernel, as in the reference."""
+    ``mode``: train | prefill (also returns the block's K / V, or MLA's
+    latent) | decode (writes the token's entries into ``cache`` at
+    ``pos``).  In training ``rt["kernels"] == "cuda"`` routes the causal
+    self-attention through the flash kernel (unless the runtime asks for
+    the chunked lowering) and the masked MLP through the masked-matmul
+    pair; MLA keeps ``rt["attn_impl"]``, and serving takes it and the
+    plain MLP, as the reference's code does.  The MoE block takes no
+    kernel, as in the reference."""
     kern = rt.get("kernels") if mode == "train" else None
     on_kernels = kern is not None and ops.canonical_impl(kern) == ops.CUDA
     attn_impl = ops.CUDA if (on_kernels and rt["attn_impl"] != "chunked") \
         else rt["attn_impl"]
     h = L.apply_norm(p["attn_norm"], x, cfg.norm)
     kv = None
-    if mode == "decode":
+    if mode == "decode" and cfg.use_mla:
+        a, _ = mla.mla_decode(p["attn"], h, cache, pos, cfg,
+                              head_mask=head_mask)
+    elif mode == "decode":
         a, _ = L.attention_decode(p["attn"], h, cache, pos,
                                   theta=cfg.rope_theta, head_mask=head_mask)
+    elif cfg.use_mla:
+        a = mla.mla_fwd(p["attn"], h, positions, cfg, impl=rt["attn_impl"],
+                        head_mask=head_mask, return_cache=mode == "prefill")
     else:
         a = L.attention_fwd(p["attn"], h, positions, theta=cfg.rope_theta,
                             impl=attn_impl, head_mask=head_mask,
                             return_kv=mode == "prefill")
-        if mode == "prefill":
-            a, kv = a
+    if mode == "prefill":
+        a, kv = a
     x = x + a
     h = L.apply_norm(p["mlp_norm"], x, cfg.norm)
     if kind == "moe":
@@ -171,22 +192,22 @@ def _stacks(params):
 def _backbone(params, x, positions, cfg, rt, masks=None, mode: str = "train",
               cache=None):
     """The layer stacks and the final norm.  ``mode``: train | prefill |
-    decode (one token at ``cache["pos"]``, each layer's K / V written into
-    ``cache`` in place).  Returns (h, the prefill's per-stack caches
-    ``[{"k", "v"} each (L, B, S, KV, hd)]``, empty otherwise)."""
+    decode (one token at ``cache["pos"]``, each layer's entries written
+    into ``cache`` in place).  Returns (h, the prefill's per-stack caches
+    (``{"k", "v"}`` each (L, B, S, KV, hd), or MLA's ``{"c_kv",
+    "k_rope"}``), empty otherwise)."""
     caches = []
     for ci, (name, kind) in enumerate(_stacks(params)):
         stacked = params[name]
-        n_layers = stacked["attn"]["wq"].shape[0]
+        n_layers = stacked["attn_norm"]["scale"].shape[0]
         sl = _stack_masks(masks, name, kind, n_layers)
         unit = "experts" if kind == "moe" else "mlp"
-        ks, vs = [], []
+        layer_caches = []
         for i, p in enumerate(unstack(stacked, n_layers)):
             um = sl[unit][i] if unit in sl else None
             layer_kv = None
             if mode == "decode":
-                kv_stack = cache["kv"][ci]
-                layer_kv = {"k": kv_stack["k"][i], "v": kv_stack["v"][i]}
+                layer_kv = {k: v[i] for k, v in cache["kv"][ci].items()}
             x, kv = _block_fwd(
                 p, x, positions, cfg, rt,
                 kind=kind, head_mask=sl["heads"][i] if "heads" in sl else None,
@@ -195,11 +216,11 @@ def _backbone(params, x, positions, cfg, rt, masks=None, mode: str = "train",
                 mode=mode, cache=layer_kv,
                 pos=cache["pos"] if mode == "decode" else None)
             if kv is not None:
-                ks.append(kv["k"])
-                vs.append(kv["v"])
-        if ks:
-            caches.append({"k": torch.stack(ks), "v": torch.stack(vs)})
-        del ks, vs
+                layer_caches.append(kv)
+        if layer_caches:
+            caches.append({k: torch.stack([c[k] for c in layer_caches])
+                           for k in layer_caches[0]})
+        del layer_caches
     return L.apply_norm(params["final_norm"], x, cfg.norm), caches
 
 

@@ -97,6 +97,16 @@ def test_port_imports_with_jax_blocked():
         "    assert api.mask_schema and api.prefill_fn and api.decode_fn\n"
         "assert build(get_model_config('xlstm-125m')).cfg.family == 'ssm'\n"
         "assert build(get_model_config('internvl2-1b')).cfg.family == 'vlm'\n"
+        "from repro_torch.models.mla import mla_fwd, mla_decode\n"
+        "from repro_torch.models.encdec import (encdec_loss, "
+        "encdec_prefill, encdec_decode)\n"
+        "from repro_torch.configs import (DEEPSEEK_V2_236B, "
+        "SEAMLESS_M4T_LARGE_V2, ARCHS)\n"
+        "assert len(ARCHS) == 10\n"
+        "for c in (DEEPSEEK_V2_236B, SEAMLESS_M4T_LARGE_V2):\n"
+        "    api = build(reduced(c))\n"
+        "    assert api.mask_schema and api.prefill_fn and api.decode_fn\n"
+        "    init_params(reduced(c), 0, 'cpu')\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro', 'msgpack', "
         "'zstandard') for m, v in sys.modules.items() if v is not None)\n"
         "import tempfile, torch\n"

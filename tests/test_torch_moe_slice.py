@@ -368,16 +368,25 @@ def test_make_adapter_dispatch_moe():
 
 
 def test_mla_and_vlm_refused():
-    """MLA is not ported: the LM and ``reduced`` refuse it, naming the
-    roadmap item.  The VLM is ported (the image prefix, since the training
-    launch) but, as in the reference, has no FL adapter: the engines
-    refuse it."""
+    """MLA is not refused: the LM and ``reduced`` take DeepSeek-V2's latent
+    attention (its parity walls are tests/test_torch_mla.py), and a MoE
+    config with ``use_mla`` gets the reference's reduced latent sizes and
+    MLA's leaves in place of the GQA projections.  The VLM is ported (the
+    image prefix, since the training launch) but, as in the reference, has
+    no FL adapter: the engines refuse it."""
     from repro_torch.federated.adapter import make_adapter
     base = CFGS["granite"][1]
-    with pytest.raises(NotImplementedError, match="item 9"):
-        build(dataclasses.replace(base, use_mla=True))
-    with pytest.raises(ValueError, match="MLA .* item 9"):
-        TC.reduced(dataclasses.replace(base, use_mla=True))
+    mla_cfg = TC.reduced(dataclasses.replace(
+        TC.GRANITE_MOE_1B_A400M, use_mla=True, q_lora_rank=1536,
+        kv_lora_rank=512, qk_nope_head_dim=128, qk_rope_head_dim=64,
+        v_head_dim=128))
+    assert (mla_cfg.q_lora_rank, mla_cfg.kv_lora_rank,
+            mla_cfg.qk_nope_head_dim, mla_cfg.qk_rope_head_dim,
+            mla_cfg.v_head_dim) == (32, 16, 16, 8, 16)
+    attn = build(mla_cfg).spec["moe_blocks"]["attn"]
+    assert set(attn) == {"wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm",
+                         "wk_b", "wv_b", "wo"}
+    assert build(mla_cfg).mask_schema == build(base).mask_schema
     vlm = TC.reduced(TC.INTERNVL2_1B)
     assert build(vlm).mask_schema == {"heads": (4, 4), "mlp": (4, 96)}
     with pytest.raises(NotImplementedError, match="supported families"):
