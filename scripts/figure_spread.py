@@ -12,8 +12,8 @@ plain path), with TF32 off and deterministic cuDNN as in
 table's spread, the largest difference of a run's final accuracy from
 the kernel path's.  Rounding noise of one ulp grows along these
 trajectories, so the spread says how many of a row's digits are the
-model's and how many are noise.  The phase itself keeps only AlexNet's
-twins, to stay inside the script's time limit.
+model's and how many are noise.  The phase itself keeps no twin, and runs
+ResNet-18's Fig. 5 at half the rounds, to stay inside its time limit.
 """
 from __future__ import annotations
 

@@ -151,7 +151,7 @@ def aggregate_masked_mean_stacked(global_params: Params,
                                   ) -> Params:
     """Per-coordinate weighted mean over the stacked client axis.
     stacked_masks: params-shaped 0/1 trees with leaves (C,) + param.shape
-    (``masking.cnn_expand_masks_batch``)."""
+    (``FamilyAdapter.expand_masks_batch``)."""
     t0 = tree_leaves(stacked_params)[0]
     n = t0.shape[0]
     a = alpha_weights(ratios) if ratios is not None else \

@@ -4,8 +4,8 @@
 :func:`expand_masks` is driven by logical axes (the LM): a parameter whose
 axes carry several maskable unit axes gets the OUTER PRODUCT of the unit
 masks, and a parameter with none gets ones.  :func:`cnn_expand_masks` is
-the CNN testbed's prefix-keyed variant, and
-:func:`cnn_expand_masks_batch` its vmap over a stacked cohort.
+the CNN testbed's prefix-keyed variant.  The family adapters vmap either
+over a stacked cohort (``FamilyAdapter.expand_masks_batch``).
 """
 from __future__ import annotations
 
@@ -99,16 +99,6 @@ def cnn_expand_masks(unit_masks: Dict[str, torch.Tensor],
                 m = m * v
         out[path] = m
     return out
-
-
-def cnn_expand_masks_batch(unit_masks: Dict[str, torch.Tensor],
-                           params: Dict[str, torch.Tensor]
-                           ) -> Dict[str, torch.Tensor]:
-    """``cnn_expand_masks`` over a stacked cohort: unit-mask leaves (C, L,
-    n), ``params`` the unstacked global template; leaves (C,) +
-    param.shape, ready for the stacked masked-mean aggregation."""
-    return torch.func.vmap(lambda um: cnn_expand_masks(um, params))(
-        unit_masks)
 
 
 def selected_fraction(unit_masks: Dict[str, torch.Tensor]) -> torch.Tensor:

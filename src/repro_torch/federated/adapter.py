@@ -90,6 +90,13 @@ class FamilyAdapter:
     def expand_masks(self, unit_masks, params):
         raise NotImplementedError
 
+    def expand_masks_batch(self, unit_masks, params):
+        """``expand_masks`` over a stacked cohort (leading client axis on
+        the unit masks, ``params`` the unstacked global template): a
+        ``torch.func.vmap`` of the family's hook, as in the reference."""
+        return torch.func.vmap(lambda um: self.expand_masks(um, params))(
+            unit_masks)
+
 
 class CNNAdapter(FamilyAdapter):
     """Paper testbed: image classification, prefix-keyed mask schema."""
@@ -111,10 +118,6 @@ class CNNAdapter(FamilyAdapter):
 
     def expand_masks(self, unit_masks, params):
         return MK.cnn_expand_masks(unit_masks, params)
-
-    def expand_masks_batch(self, unit_masks, params):
-        """``expand_masks`` over a stacked cohort (leading client axis)."""
-        return MK.cnn_expand_masks_batch(unit_masks, params)
 
 
 class TokenLMAdapter(FamilyAdapter):

@@ -26,15 +26,16 @@ and overrides its hooks (``_train_cohort``, ``_write_volumes``,
 
 * :class:`FLRun` — the sequential reference: one local training per
   client, one event at a time in ``run_async``.
-* :class:`AsyncFLRun` — the bucketed async engine (asyn / afo, CNN
-  testbed): a bucket of equal-time completions trains under one
+* :class:`AsyncFLRun` — the bucketed async engine (asyn / afo; the CNN
+  testbed, the dense LM and the Mamba2 hybrid): a bucket of equal-time completions trains under one
   ``torch.func.vmap`` from the rows of a device-side snapshot ring and is
   mixed in event order.  Same seed, same global-param trajectory as
   ``FLRun.run_async`` up to rounding.
-* :class:`BatchedFLRun` — the batched sync engine (CNN testbed): a round
-  runs the soft-training stragglers and the capable clients as two
-  cohorts, each local step of a cohort one vmapped step whose masked
-  products are one kernel launch for the whole cohort.  Inherits the
+* :class:`BatchedFLRun` — the batched sync engine (the families of
+  :data:`BATCHED_FAMILIES`): a round runs the soft-training stragglers and
+  the capable clients as two cohorts, each local step of a cohort one
+  vmapped step whose masked products, flash attention and ``ssd_diag``
+  calls are one kernel launch each for the whole cohort.  Inherits the
   bucketed async path.
 
 The loops never wait for the device except in ``evaluate`` and the history
@@ -70,8 +71,7 @@ from repro_torch.core.identification import (DeviceProfile,
                                              identify_resource_based,
                                              identify_time_based)
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.federated.adapter import (CNNAdapter, FamilyAdapter,
-                                           make_adapter)
+from repro_torch.federated.adapter import FamilyAdapter, make_adapter
 from repro_torch.federated.events import (ArrivalProcess, DropoutProcess,
                                           SimClock)
 from repro_torch.federated.heterogeneity import cycle_time
@@ -86,6 +86,11 @@ from repro_torch.optim import compression as CP
 #: most events a bucket of the async engine trains at once: bounds the
 #: memory of the vmapped local training
 MAX_BUCKET = 128
+
+#: model families the batched and bucketed engines run: the CNN testbed,
+#: the dense LM and the Mamba2 hybrid (their kernels fold a cohort into
+#: one launch under ``torch.func.vmap``)
+BATCHED_FAMILIES = ("cnn", "dense", "hybrid")
 
 
 def _make_local_train(adapter: FamilyAdapter, opt):
@@ -820,8 +825,8 @@ class FLRun:
 
 
 class AsyncFLRun(FLRun):
-    """Bucketed event engine for the async schemes (asyn / afo) on the CNN
-    testbed.
+    """Bucketed event engine for the async schemes (asyn / afo) on the
+    families of :data:`BATCHED_FAMILIES`.
 
     The event semantics are ``FLRun.run_async``'s, executed in bulk:
 
@@ -850,12 +855,12 @@ class AsyncFLRun(FLRun):
 
     def __post_init__(self):
         super().__post_init__()
-        if not isinstance(self.adapter, CNNAdapter):
+        if self.cfg.family not in BATCHED_FAMILIES:
             raise NotImplementedError(
-                f"{type(self).__name__} runs the CNN testbed only: the "
-                f"{self.cfg.family!r} family needs vmap rules for its "
-                "flash_attention / ssd_diag Functions, the moe family a "
-                "vmapped expert dispatch too (ROADMAP.md item 19)")
+                f"{type(self).__name__} runs the families "
+                f"{BATCHED_FAMILIES}, not the {self.cfg.family!r} family: "
+                "the moe family needs a vmapped expert dispatch, the ssm "
+                "family (xLSTM) a vmapped scan (ROADMAP.md item 19)")
         #: one tensor per key for the whole run, so the kernels' live tables
         #: of a capable cohort are built once
         self._ones = ST.full_masks(self.adapter.schema, self.device)

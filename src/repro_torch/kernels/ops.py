@@ -20,13 +20,15 @@ reference does, differentiates by recomputing the plain attention under
 autograd in its backward (no backward kernel).  :func:`ssd_diag` does the
 same for the Mamba2 intra-chunk term (the reference has no VJP for it).
 
-The masked Functions run under ``torch.func.vmap`` too (the batched round
-engine vmaps a local step over a cohort): each has a ``vmap`` rule that
-moves the client axis to the front and calls the client-axis kernels, one
-launch for the cohort, and their backward calls the raw products through
-small Functions that carry vmap rules of their own.  An operand that is
-the same for every client (``in_dims=None``) reaches the kernels with a
-client stride of 0.
+Every Function runs under ``torch.func.vmap`` too (the batched round
+engines vmap a local step over a cohort), one launch for the cohort: the
+masked Functions' ``vmap`` rules move the client axis to the front and
+call the client-axis kernels, and their backward calls the raw products
+through small Functions that carry vmap rules of their own (an operand
+the same for every client, ``in_dims=None``, reaches the kernels with a
+client stride of 0); the flash attention and SSD Functions fold the
+client axis into the kernels' batch axis, and their recompute backwards
+go through ``torch.func.vjp``, which the transforms compose with.
 
 On a CPU tensor the kernel wrappers compute their plain versions, so the
 same autograd structure runs in the CPU tests.  The kernels mask ragged
@@ -326,25 +328,49 @@ def masked_matmul(x: torch.Tensor, w: torch.Tensor, unit_mask: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def _fold_clients(info, in_dims, *ts) -> Tuple[torch.Tensor, ...]:
+    """A batched-kernel vmap rule's operands with the client axis folded
+    into the leading batch axis: (C, B, ...) -> (C·B, ...), a view where
+    the layout allows (a shared operand is copied C times)."""
+    return tuple(_clients_first(info, t, d).flatten(0, 1)
+                 for t, d in zip(ts, in_dims))
+
+
+def _unfold_clients(info, y: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """(C·B, ...) -> (C, B, ...) with the client axis at 0."""
+    return y.unflatten(0, (info.batch_size, -1)), 0
+
+
 class _FlashAttention(torch.autograd.Function):
     """Kernel forward; the backward re-evaluates the plain attention and
-    differentiates it, so the O(S²) scores live only inside the backward
-    (the reference's ``_flash_diff``)."""
+    differentiates it (``torch.func.vjp``, so it runs under the batched
+    engine's transforms too), and the O(S²) scores live only inside the
+    backward (the reference's ``_flash_diff``).  Under ``torch.func.vmap``
+    the client axis folds into B: one launch for the cohort."""
+
+    generate_vmap_rule = False
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        ctx.save_for_backward(q, k, v)
-        ctx.causal = causal
+    def forward(q, k, v, causal):
         return FA.flash_attention(q, k, v, causal)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal = inputs
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+
+    @staticmethod
     def backward(ctx, dy):
-        q, k, v = ctx.saved_tensors
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            out = ref.flash_attention_ref(*leaves, causal=ctx.causal)
-            dq, dk, dv = torch.autograd.grad(out, leaves, dy)
-        return dq, dk, dv, None
+        _, vjp = torch.func.vjp(
+            lambda q, k, v: ref.flash_attention_ref(q, k, v, ctx.causal),
+            *ctx.saved_tensors)
+        return (*vjp(dy), None)
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal):
+        q, k, v = _fold_clients(info, in_dims[:3], q, k, v)
+        return _unfold_clients(info, _FlashAttention.apply(q, k, v, causal))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -369,21 +395,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 class _SSDDiag(torch.autograd.Function):
     """Kernel forward; the backward re-evaluates the plain intra-chunk term
-    and differentiates it, so the (L, L, nh) decay tensors live only inside
-    the backward.  The gradient of ``cum`` carries those of dt and A."""
+    and differentiates it (``torch.func.vjp``), so the (L, L, nh) decay
+    tensors live only inside the backward.  The gradient of ``cum``
+    carries those of dt and A.  Under ``torch.func.vmap`` the client axis
+    folds into B: one launch for the cohort."""
+
+    generate_vmap_rule = False
 
     @staticmethod
-    def forward(ctx, cr, br, cum, dtx):
-        ctx.save_for_backward(cr, br, cum, dtx)
+    def forward(cr, br, cum, dtx):
         return SS.ssd_diag(cr, br, cum, dtx)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
     def backward(ctx, dy):
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_(True)
-                      for t in ctx.saved_tensors]
-            out = ref.ssd_diag_ref(*leaves)
-            return torch.autograd.grad(out, leaves, dy)
+        _, vjp = torch.func.vjp(ref.ssd_diag_ref, *ctx.saved_tensors)
+        return vjp(dy)
+
+    @staticmethod
+    def vmap(info, in_dims, cr, br, cum, dtx):
+        ts = _fold_clients(info, in_dims, cr, br, cum, dtx)
+        return _unfold_clients(info, _SSDDiag.apply(*ts))
 
 
 def ssd_diag(cr: torch.Tensor, br: torch.Tensor, cum: torch.Tensor,

@@ -74,6 +74,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.drivers.scheme_gauntlet\n"
         "import repro_torch.drivers.heterogeneous_fl\n"
         "import repro_torch.drivers.serve_while_train\n"
+        "import repro_torch.drivers.federated_lm\n"
         "import repro_torch.obs, repro_torch.obs.report\n"
         "import repro_torch.obs.__main__\n"
         "import repro_torch.checkpoint, repro_torch.checkpoint.wire\n"
@@ -121,3 +122,28 @@ def test_port_imports_with_jax_blocked():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_package_import_sets_up_every_mkl_vml_function():
+    """Importing the package calls, on one element, every torch CPU math
+    function that runs on MKL's vector math library (a kernel named
+    ``<op>_vml_cpu``): the first call of such a function made by several
+    OpenMP threads at once can return wrong values (``repro_torch``'s
+    docstring, ROADMAP.md section 3)."""
+    torch = pytest.importorskip("torch")
+    import repro_torch
+    unary = ("abs", "acos", "acosh", "asin", "asinh", "atan", "atanh",
+             "ceil", "cos", "cosh", "digamma", "erf", "erfc", "erfinv",
+             "exp", "exp2", "expm1", "floor", "frac", "i0", "lgamma", "log",
+             "log10", "log1p", "log2", "neg", "reciprocal", "round", "rsqrt",
+             "sigmoid", "sign", "sin", "sinc", "sinh", "sqrt", "tan", "tanh",
+             "trunc")
+    vml = set()
+    for name in unary:
+        try:
+            getattr(torch, name)(torch.zeros(2, dtype=torch.complex32))
+        except Exception as e:           # the kernel's name is in the error
+            if f'"{name}_vml_cpu"' in str(e):
+                vml.add(name)
+    assert "exp" in vml and "rsqrt" not in vml
+    assert vml <= set(repro_torch._VML_FUNCTIONS), vml
