@@ -58,10 +58,10 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    five-step drift beside a 2^-23-nudged twin's; asyn / afo
    ``run_async(4)`` on the bucket engine against the sequential plain
    loop at 1e-4; the 2 + 2 round walls of both engines on both paths in
-   turns and a profiled batched round; populations of 16 and 64 clients
-   (half stragglers, IID, helios, 1 local step of batch 16): the round
-   wall of ``FLRun`` against ``BatchedFLRun`` on both paths, the launches
-   of a round, a profiled batched round and its peak memory;
+   turns and a profiled batched round; a population of 64 clients (half
+   stragglers, IID, helios, 1 local step of batch 16): the round wall of
+   ``FLRun`` against ``BatchedFLRun`` on both paths, the launches of a
+   round, a profiled batched round and its peak memory;
 4i. the gauntlet's last schemes and the comparison drivers on the same
    setting: ``run_sync(2)`` of scaffold, fluid and delayed on ``FLRun``
    (120 single-client masked launches a round each) and on
@@ -248,7 +248,29 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    once a Mamba2 layer, local step and cohort: 24), and ``AsyncFLRun``
    asyn ``run_async(4)`` on its kernel path (one ``ssd_diag`` a Mamba2
    layer and bucket) against its plain path and ``FLRun.run_async``'s
-   plain path: events equal, params within 1e-4.
+   plain path: events equal, params within 1e-4;
+4p. the population engine (``ShardedFLRun`` at world 1): the client-axis
+   pair at the LeNet cohort's shapes (C = 64, batch 16; fc0 and fc1
+   forward, dx and dw) held against its plain versions, fc0's forward and
+   dx timed beside their bounds, the plain versions and ``torch.bmm``;
+   full-width AlexNet, a population of 1024 clients (half stragglers,
+   IID), 32 a round, helios, one local step of batch 16, lr 0.05:
+   ``run_sync(2)`` with the uniform sampler on the kernel and the plain
+   path and with the time-weighted sampler on the kernel path, counters
+   zeroed before and read after (6 client-axis launches a local step and
+   rank block, none single-client), the rows of undrawn clients bit for
+   bit as they were and the drawn stragglers' cycles equal to their
+   draws, the kernel path held to the plain path at 1e-4 (ratios to one
+   ulp), the host bytes of the population rows, round walls of both paths
+   in turns, a profiled round and its peak; 64 clients at full
+   participation on ``FLRun``, ``BatchedFLRun`` and ``ShardedFLRun``, held
+   together at 1e-4 (the three-way wall); full-width LeNet, a population
+   of 10^5 clients (an 8-device template fleet over one shared index
+   array, as the reference's million-client worker builds it), 64 a round
+   under ``topk``: set-up time, a warm-up round, 2 rounds with exact
+   launches, finite params, undrawn rows at their initial values, an
+   error row for each drawn client only, the round wall, host bytes and
+   the peak.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and before that the
@@ -1547,18 +1569,19 @@ def time_batched_rounds(st) -> None:
 
 
 def population_path(st) -> dict:
-    """Full-width AlexNet populations of 16 and 64 clients (half
-    stragglers, IID, helios, 1 local step of batch 16, lr 0.05): the round
-    wall of ``FLRun`` against ``BatchedFLRun`` on the kernel path and the
-    plain path after a warm-up round, the launches of a round, one profiled
-    batched round and its peak memory."""
+    """A full-width AlexNet population of 64 clients (half stragglers, IID,
+    helios, 1 local step of batch 16, lr 0.05): the round wall of
+    ``FLRun`` against ``BatchedFLRun`` on the kernel path and the plain
+    path after a warm-up round, the launches of a round, one profiled
+    batched round and its peak memory.  Larger populations run on the
+    population engine (phase 4p)."""
     from repro_torch.data.federated import partition_iid
     from repro_torch.federated import BatchedFLRun, FLRun
     from repro_torch.kernels import masked_matmul as K
     cfg, hcfg, train, test, _ = st
     out = {}
     launched = {k: 0 for k in CLIENT_CALLS_PER_STEP}
-    for n in (16, 64):
+    for n in (64,):
         pop = (cfg, hcfg, train, test,
                partition_iid(len(train["labels"]), n))
         kw = dict(fleet=(n - n // 2, n // 2), local_steps=1, batch_size=16)
@@ -5276,6 +5299,281 @@ def cohort_phase(kernels: list) -> None:
     log(f"phase 4o took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 4p: the population engine
+# ---------------------------------------------------------------------------
+
+#: AlexNet's population (half stragglers) and its cohort a round: the
+#: reference example's defaults; one local step of batch 16, lr 0.05
+POP_N, POP_K, POP_BATCH = 1024, 32, 16
+#: LeNet's population, sampled POP_LENET_K a round under topk
+POP_LENET_N, POP_LENET_K = 100_000, 64
+#: the three-way wall's full-participation fleet
+POP_WALL_N = 64
+
+
+def _pop_rows(pop: dict, idx) -> dict:
+    """Copies of population rows ``idx``, flattened to {path: array}."""
+    from repro_torch.models.module import tree_paths
+    return {k: v[idx].copy() for k, v in tree_paths(pop)}
+
+
+def _pop_run(kernels: str, st, n: int, k: int, sampler: str = "uniform",
+             engine=None, **kw):
+    """A helios run over ``n`` clients of ``st``'s IID partition (half
+    stragglers), ``k`` a round (0: all), on ``ShardedFLRun`` unless
+    ``engine`` is given."""
+    from repro_torch.federated import ShardedFLRun
+    return make_run("helios", kernels, st, fleet=(n - n // 2, n // 2),
+                    engine=engine or ShardedFLRun, local_steps=1,
+                    batch_size=POP_BATCH, participation=k, sampler=sampler,
+                    **kw)
+
+
+def alexnet_population_path(st) -> dict:
+    """Full-width AlexNet, a population of POP_N clients, POP_K a round:
+    uniform and time-weighted ``run_sync(2)`` on the kernel path with the
+    counters zeroed before and read after (6 client-axis launches a local
+    step and rank block, none single-client), undrawn rows bit for bit as
+    they were, the kernel path held to the plain path; round walls in
+    turns, a profiled round with its peak; then the three-way wall at
+    POP_WALL_N clients: ``ShardedFLRun`` against ``BatchedFLRun`` and
+    ``FLRun`` on the card."""
+    import numpy as np
+    from repro_torch.core import soft_train as ST
+    from repro_torch.data.federated import partition_iid, partition_iid_lazy
+    from repro_torch.federated import BatchedFLRun, FLRun
+    from repro_torch.kernels import masked_matmul as K
+    cfg, hcfg, train, test, _ = st
+    pop = (cfg, hcfg, train, test,
+           list(partition_iid_lazy(len(train["labels"]), POP_N, seed=0)))
+    out = {"launches": {k: 0 for k in CLIENT_CALLS_PER_STEP}}
+    runs = {}
+    for sampler, kernels in (("uniform", "cuda"), ("uniform", "reference"),
+                             ("time_weighted", "cuda")):
+        run = _pop_run(kernels, pop, POP_N, POP_K, sampler)
+        before = _pop_rows(run._pop_state, slice(None))
+        K.reset_launches()
+        hist, wall = timed_run(run, 2)
+        what = f"sharded {sampler} {kernels}"
+        if kernels == "cuda":
+            got = _expect_client_launches(what, 2, {"splitk": 4,
+                                                   "tile128": 2})
+            out["launches"] = _add(out["launches"], got)
+        elif any(K.LAUNCHES.values()) or any(K.CLIENT_LAUNCHES.values()):
+            raise AssertionError(f"{what}: the plain path launched a kernel")
+        _finite(run, what)
+        drawn = sorted({i for c in run.cohort_log for i in c})
+        undrawn = np.setdiff1d(np.arange(POP_N), drawn)
+        after = _pop_rows(run._pop_state, slice(None))
+        for key, v in before.items():
+            if not np.array_equal(v[undrawn], after[key][undrawn]):
+                raise AssertionError(f"{what}: undrawn rows moved ({key})")
+        strag = [i for i in drawn if run.clients[i].is_straggler]
+        cycles = run._pop_state["cycle"]
+        want = [sum(i in c for c in run.cohort_log) for i in strag]
+        if cycles[strag].tolist() != want or any(
+                cycles[i] for i in drawn if i not in strag):
+            raise AssertionError(f"{what}: cycles {cycles[drawn]} not the "
+                                 f"draws")
+        ratios = [r for c, r in zip(run.cohort_log[-1], hist[-1]["ratios"])
+                  if run.clients[c].is_straggler]
+        if not ratios or max(ratios) >= 1.0:
+            raise AssertionError(f"{what}: straggler ratios {ratios}")
+        log(f"{what}: 2 rounds in {wall:.3f} s (first rounds of the run), "
+            f"cohorts {run.cohort_log}, {len(drawn)} of {POP_N} drawn, "
+            f"{len(undrawn)} undrawn rows bit-identical, kpad {run._kpad}, "
+            f"acc {[round(h['acc'], 4) for h in hist]}")
+        runs[sampler, kernels] = run
+    a, b = runs["uniform", "cuda"], runs["uniform", "reference"]
+    diff = _hold_batched("sharded population", a, b)
+    if runs["time_weighted", "cuda"].cohort_log == a.cohort_log:
+        raise AssertionError("the time-weighted sampler drew the uniform "
+                             "cohorts")
+    nbytes = ST.population_nbytes(a._pop_state)
+    log(f"sharded population run_sync(2) kernel path held to the plain path:"
+        f" max|param diff| {diff:.3e}; population rows on the host "
+        f"{nbytes} B ({nbytes / POP_N:.1f} B a client)")
+    # round walls: the two paths' warm runs, two rounds each, in turns
+    walls = {"cuda": [], "reference": []}
+    for kernels in ("cuda", "reference", "reference", "cuda"):
+        run = runs["uniform", kernels]
+        walls[kernels].append(timed_run(run, 2, eval_every=0)[1] / 2)
+    log(f"sharded population round wall s (K={POP_K} of {POP_N}, warm): "
+        + json.dumps(walls))
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    prof = profile_round(a, f"sharded round (K={POP_K} of {POP_N})",
+                         host_top=10)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"sharded population round peak device memory {peak:.3f} GiB")
+    out.update(walls=walls, peak_gib=peak, host_bytes=nbytes, hold=diff,
+               profile=prof)
+    del runs, a, b
+    _free()
+    # the three-way wall: every client of a POP_WALL_N fleet, 2 rounds
+    wall_st = (cfg, hcfg, train, test,
+               partition_iid(len(train["labels"]), POP_WALL_N))
+    three = {}
+    for engine in (FLRun, BatchedFLRun, None):
+        K.reset_launches()
+        run = _pop_run("cuda", wall_st, POP_WALL_N, 0, engine=engine)
+        timed_run(run, 2)
+        _finite(run, f"three-way {type(run).__name__}")
+        three[type(run).__name__] = run
+    got = _expect_client_launches("sharded full participation", 2,
+                                  {"splitk": 4, "tile128": 2})
+    out["launches"] = _add(out["launches"], got)
+    s = three["ShardedFLRun"]
+    d_b = _hold_batched("sharded vs batched", s, three["BatchedFLRun"])
+    d_f = _hold_batched("sharded vs sequential", s, three["FLRun"])
+    log(f"three-way wall at {POP_WALL_N} clients, 2 rounds x 1 step, kernel "
+        f"path: max|param diff| sharded vs batched {d_b:.3e}, vs FLRun "
+        f"{d_f:.3e}")
+    out["three_way"] = {"batched": d_b, "sequential": d_f}
+    return out
+
+
+def check_population_kernels(g) -> tuple:
+    """The client-axis pair at the LeNet cohort's shapes (C = POP_LENET_K,
+    M = POP_BATCH; fc0 K 256, N 120; fc1 K 120, N 84): forward, dx and dw,
+    the clients' one block live or dead, held against the plain versions
+    and repeated bit-identical; then fc0's forward and dx timed at P = 1
+    beside their bounds, the plain versions and ``torch.bmm``.  Returns
+    the kernel rows (launches filled in by the path)."""
+    from repro_torch.kernels import masked_matmul as K
+    worst = {"masked_matmul_clients": 0.0, "masked_matmul_dk_clients": 0.0}
+    c, m = POP_LENET_K, POP_BATCH
+    for layer, (k, n) in LENET_LAYERS.items():
+        for kind in ("fwd", "dx", "dw"):
+            fn, plain, x, w, live, counts, dead, _ = _client_case(
+                kind, c, m, k, n, torch.float32, g)
+            err, config = _check_client_call(
+                f"LeNet population {layer} {kind} C={c} m={m} k={k} n={n}",
+                fn, plain, x, w, live, counts, dead, torch.float32)
+            if kind != "dw" and config != "splitk":
+                raise AssertionError(f"LeNet population {layer} {kind} took "
+                                     f"{config}, not splitk")
+            worst[fn.__name__] = max(worst[fn.__name__], err)
+    rows = []
+    k, n = LENET_LAYERS["fc0"]
+    for kind, name in (("fwd", "masked_matmul"), ("dx", "masked_matmul_dk")):
+        t = _time_client_call("LeNet population fc0", kind, c, m, k, n, 1.0,
+                              g, 8)
+        rows.append({"name": f"{name}_clients_population", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
+                     "replaces": "src/repro/kernels/masked_matmul.py:"
+                                 + ("87" if name == "masked_matmul" else
+                                    "103"),
+                     "shape": [c, m, k, n], "launches": 0,
+                     "max_abs_err": worst[f"{name}_clients"], **t})
+    K.reset_launches()
+    return rows
+
+
+def lenet_population_path() -> dict:
+    """Full-width LeNet, a population of POP_LENET_N clients cycling an
+    8-device Table-I template fleet over one shared index array (the
+    reference's ``benchmarks/million_worker.py`` build), POP_LENET_K a
+    round under ``topk``: set-up time, a warm-up round, then 2 rounds with
+    the counters zeroed before and read after (6 client-axis launches a
+    local step, none single-client), every param finite, undrawn rows at
+    their initial values, error rows for the drawn clients only, the
+    round wall, the host bytes and the peak."""
+    import numpy as np
+    from repro_torch.configs import LENET, HeliosConfig
+    from repro_torch.core import soft_train as ST
+    from repro_torch.data.synthetic import class_gaussian_images
+    from repro_torch.federated import (Client, ShardedFLRun, make_fleet,
+                                       setup_clients)
+    from repro_torch.kernels import masked_matmul as K
+    cfg, hcfg = LENET, HeliosConfig()
+    imgs, labels = class_gaussian_images(4096, cfg.image_size,
+                                         cfg.in_channels, cfg.num_classes)
+    ti, tl = class_gaussian_images(256, cfg.image_size, cfg.in_channels,
+                                   cfg.num_classes, seed=99)
+    t0 = time.perf_counter()
+    tmpl = setup_clients(make_fleet(4, 4), [np.arange(8)] * 8, hcfg,
+                         device="cuda")
+    idx = np.arange(len(labels))
+    clients = [Client(cid=i, profile=tmpl[i % 8].profile, data_idx=idx,
+                      volume=tmpl[i % 8].volume,
+                      is_straggler=tmpl[i % 8].is_straggler)
+               for i in range(POP_LENET_N)]
+    run = ShardedFLRun(cfg, hcfg, "helios", clients,
+                       {"images": imgs, "labels": labels},
+                       {"images": ti, "labels": tl}, local_steps=1,
+                       batch_size=POP_BATCH, lr=0.05,
+                       participation=POP_LENET_K, compression="topk",
+                       kernels="cuda", device="cuda")
+    setup_s = time.perf_counter() - t0
+    nbytes = ST.population_nbytes(run._pop_state)
+    timed_run(run, 1, eval_every=0)                       # warm-up round
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    _, wall = timed_run(run, 2, eval_every=0)
+    launches = dict(K.CLIENT_LAUNCHES)
+    want = {k: v * 2 for k, v in CLIENT_CALLS_PER_STEP.items()}
+    log(f"LeNet population client-axis launches {json.dumps(launches)}, "
+        f"single-client {json.dumps(K.LAUNCHES)} over 2 rounds")
+    if launches != want or any(K.LAUNCHES.values()):
+        raise AssertionError(f"LeNet population launches {launches} / "
+                             f"{K.LAUNCHES}, want {want} / none")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _finite(run, "LeNet population")
+    drawn = sorted({i for c in run.cohort_log for i in c})
+    rest = np.setdiff1d(np.arange(POP_LENET_N), drawn)
+    pop = run._pop_state
+    fresh = all(bool((pop[part][k][rest] == fill).all())
+                for part, fill in (("masks", 1), ("scores", 0),
+                                   ("skip_counts", 0)) for k in pop[part]) \
+        and not pop["cycle"][rest].any() and \
+        not pop["rng"]["splits"][rest].any()
+    touched = run._err_store.touched()
+    if not fresh or touched != len(drawn):
+        raise AssertionError(f"LeNet population: undrawn rows moved "
+                             f"({not fresh}) or error rows {touched} != "
+                             f"{len(drawn)} drawn")
+    acc = run.evaluate()
+    up = run.uplink_bytes() / run.uplink_updates
+    log(f"LeNet population N={POP_LENET_N} K={POP_LENET_K} topk: set-up "
+        f"{setup_s:.3f} s, round {wall / 2:.4f} s (warm), host rows "
+        f"{nbytes} B ({nbytes / POP_LENET_N:.1f} B a client), peak "
+        f"{peak:.3f} GiB, {len(drawn)} drawn over {len(run.cohort_log)} "
+        f"rounds, error rows {touched} ({run._err_store.nbytes()} B), "
+        f"uplink {up:.1f} B an update (dense {4 * run._n_params} B), acc "
+        f"{acc:.4f}")
+    return {"setup_s": setup_s, "round_s": wall / 2, "host_bytes": nbytes,
+            "peak_gib": peak, "launches": launches}
+
+
+def population_phase(kernels: list) -> None:
+    """Phase 4p; appends the LeNet cohort's rows to ``kernels`` and adds the
+    AlexNet paths' launches to the client-axis rows."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(67)
+    rows = check_population_kernels(g)
+    t1 = time.perf_counter()
+    alex = alexnet_population_path(setting())
+    _free()
+    t2 = time.perf_counter()
+    lenet = lenet_population_path()
+    _free()
+    log(f"phase 4p: kernel checks and times {t1 - t0:.1f} s, AlexNet "
+        f"{t2 - t1:.1f} s, LeNet {time.perf_counter() - t2:.1f} s")
+    for row in rows:
+        row["launches"] = lenet["launches"][row["name"].replace(
+            "_clients_population", "")]
+    kernels += rows
+    _add_launches(kernels, "population_sharded",
+                  {f"{k}_clients": v for k, v in alex["launches"].items()})
+    log("population summary " + json.dumps(
+        {"alexnet": alex, "lenet": lenet},
+        default=lambda v: round(v, 6) if isinstance(v, float) else str(v)))
+    log(f"phase 4p took {time.perf_counter() - t0:.1f} s")
+
+
 def _device_us(e) -> float:
     """Self device time of a profiler row (the attribute was renamed)."""
     t = getattr(e, "self_device_time_total", None)
@@ -5387,6 +5685,10 @@ def main() -> int:
     mark("phase 4n")
 
     cohort_phase(kernels)
+    _free()
+    mark("phase 4o")
+
+    population_phase(kernels)
 
     log(f"chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -18,10 +18,16 @@ the tensors stack on the device, the volumes and cycle counters become
 host arrays and the key paths a list.  ``end_cycle`` runs on a stacked
 state as it is; ``begin_cycle`` runs client by client, because each
 client's draws are a host-named stream of its own.
+
+A whole population's states live on the host as rows (``init_population``,
+``host_states``): numpy arrays with a leading client axis, the key paths
+as two integer columns (root seed, cycles split off it).  A round gathers
+its cohort's rows onto the device in the stacked form and scatters them
+back in place (``gather_states_host`` / ``scatter_states_host``).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +36,7 @@ from repro_torch.configs.base import HeliosConfig
 from repro_torch.core import contribution as C
 from repro_torch.core import keys as KY
 from repro_torch.core import selection as S
-from repro_torch.models.module import tree_map
+from repro_torch.models.module import tree_leaves, tree_map
 
 
 def full_masks(schema: Dict[str, tuple], device) -> Dict[str, torch.Tensor]:
@@ -125,3 +131,95 @@ def unstack_states(stacked: dict, n: int) -> List[dict]:
 def set_volumes(stacked: dict, volumes: Sequence[float]) -> dict:
     """Write the (C,) volumes of a stacked state."""
     return {**stacked, "volume": np.asarray(volumes, np.float32)}
+
+
+# ---------------------------------------------------------------------------
+# persistent-population state (partial participation)
+# ---------------------------------------------------------------------------
+
+#: the one step a cycle adds to a key path (``begin_cycle``'s split(2)[0])
+_CYCLE_STEP = ("split", 2, 0)
+
+
+def key_row(k: KY.Key) -> Tuple[int, int]:
+    """(root seed, splits) of a key that is its root seed's first half
+    split ``splits`` times, the only form ``begin_cycle`` makes; any other
+    path raises rather than be stored wrong."""
+    root, *steps = k.path
+    if root[0] != "seed" or any(s != _CYCLE_STEP for s in steps):
+        raise ValueError(f"a population row holds a seed and its cycle "
+                         f"splits, not the key path {k.path}")
+    return root[1], len(steps)
+
+
+def row_key(seed: int, splits: int) -> KY.Key:
+    return KY.Key((("seed", int(seed)),) + (_CYCLE_STEP,) * int(splits))
+
+
+def init_population(schema: Dict[str, tuple], volumes: Sequence[float],
+                    seeds: Sequence[int]) -> dict:
+    """Host rows of a whole population, built without N per-client dicts.
+
+    Row i equals ``init_state(schema, volume=volumes[i], seed=seeds[i])``,
+    key path included, so a population engine seeds exactly like
+    ``FLRun``.  Leaves are writable numpy arrays with a leading client
+    axis; ``rng`` holds the key paths as ``{"seed", "splits"}`` columns.
+    """
+    seeds = np.asarray(list(seeds), np.int64)
+    n = len(seeds)
+    return {
+        "masks": {k: np.ones((n,) + tuple(s), np.float32)
+                  for k, s in schema.items()},
+        "scores": {k: np.zeros((n,) + tuple(s), np.float32)
+                   for k, s in schema.items()},
+        "skip_counts": {k: np.zeros((n,) + tuple(s), np.int32)
+                        for k, s in schema.items()},
+        "volume": np.asarray(list(volumes), np.float32),
+        "rng": {"seed": seeds, "splits": np.zeros(n, np.int64)},
+        "cycle": np.zeros(n, np.int64),
+    }
+
+
+def host_states(stacked: dict) -> dict:
+    """A stacked state (``stack_states``' form) as host population rows:
+    device tensors pulled into writable numpy arrays, the key list into
+    its two columns."""
+    rows = [key_row(k) for k in stacked["rng"]]
+    out = tree_map(lambda x: x.detach().cpu().numpy().copy()
+                   if torch.is_tensor(x) else np.array(x),
+                   {k: v for k, v in stacked.items() if k != "rng"})
+    out["rng"] = {"seed": np.asarray([r[0] for r in rows], np.int64),
+                  "splits": np.asarray([r[1] for r in rows], np.int64)}
+    return out
+
+
+def gather_states_host(pop: dict, idx, device) -> dict:
+    """The rows ``idx`` of a host population in ``stack_states``' form:
+    tensors on ``device`` (copies: later scatters cannot reach them),
+    volumes and cycles as host arrays, the key paths as a list."""
+    idx = np.asarray(idx, np.int64)
+    out = tree_map(lambda x: x[idx],
+                   {k: v for k, v in pop.items() if k != "rng"})
+    for part in ("masks", "scores", "skip_counts"):
+        out[part] = {k: torch.from_numpy(v).to(device)
+                     for k, v in out[part].items()}
+    out["rng"] = [row_key(s, n) for s, n in
+                  zip(pop["rng"]["seed"][idx], pop["rng"]["splits"][idx])]
+    return out
+
+
+def scatter_states_host(pop: dict, idx, sub: dict) -> None:
+    """Write a stacked state's rows into the host population at ``idx``
+    (duplicate-free), in place: the inverse of ``gather_states_host``."""
+    idx = np.asarray(idx, np.int64)
+    rows = host_states(sub)
+
+    def write(x, s):
+        x[idx] = s
+
+    tree_map(write, pop, rows)
+
+
+def population_nbytes(pop: dict) -> int:
+    """Host bytes of a population's rows."""
+    return sum(x.nbytes for x in tree_leaves(pop))

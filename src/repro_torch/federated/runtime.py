@@ -1,5 +1,6 @@
 # repro: noqa[R6] -- reached from chip_smoke.py, outside the orphan rule's roots
-"""Federated round engines: ``FLRun``, ``AsyncFLRun`` and ``BatchedFLRun``.
+"""Federated round engines: ``FLRun``, ``AsyncFLRun``, ``BatchedFLRun`` and
+``ShardedFLRun``.
 
 The algorithm lives behind :mod:`repro_torch.federated.schemes`; this module
 owns execution.  Time is simulated (``heterogeneity.cycle_time``,
@@ -37,6 +38,10 @@ and overrides its hooks (``_train_cohort``, ``_write_volumes``,
   vmapped step whose masked products, flash attention and ``ssd_diag``
   calls are one kernel launch each for the whole cohort.  Inherits the
   bucketed async path.
+* :class:`ShardedFLRun` — the population-scale engine: a persistent
+  population's Helios state in host rows, a sampled cohort padded to a
+  multiple of the clients group's ranks, each rank's block of slots one
+  vmapped step a local step, partial sums joined by one ``all_reduce``.
 
 The loops never wait for the device except in ``evaluate`` and the history
 row behind the eval gate.
@@ -77,8 +82,10 @@ from repro_torch.federated.events import (ArrivalProcess, DropoutProcess,
 from repro_torch.federated.heterogeneity import cycle_time
 from repro_torch.federated.schemes import Scheme, make_scheme
 from repro_torch.kernels.ops import CUDA, REFERENCE, canonical_impl
+from repro_torch.launch.mesh import ClientGroup, make_client_group
 from repro_torch.models import init_params as _init_params
-from repro_torch.models.module import tree_map, tree_paths, unflatten
+from repro_torch.models.module import (tree_leaves, tree_map, tree_paths,
+                                       unflatten)
 from repro_torch.obs import recorder as OBS
 from repro_torch.optim import apply_updates, make_optimizer
 from repro_torch.optim import compression as CP
@@ -295,14 +302,18 @@ class FLRun:
         self.rec.accum("uplink_coords", torch.zeros((), device=self.device))
         if self.compression != "none":
             self._err_store = CP.HostErrorStore(self.global_params)
-        for c in self.clients:
-            c.helios_state = ST.init_state(self.adapter.schema,
-                                           volume=c.volume, seed=c.cid,
-                                           device=self.device)
+        self._init_helios()
         self._local_train = _make_local_train(self.adapter, self.opt)
         self._scheme.init_run(self)
         if self.rec.armed:                 # the manifest is emission-side
             self.rec.manifest.update(self._obs_manifest())
+
+    def _init_helios(self) -> None:
+        """Each client's Helios state, seeded by its cid."""
+        for c in self.clients:
+            c.helios_state = ST.init_state(self.adapter.schema,
+                                           volume=c.volume, seed=c.cid,
+                                           device=self.device)
 
     # -- the uplink codec --------------------------------------------------
     def _compress_one(self, base, new_params, err, pmasks):
@@ -609,9 +620,10 @@ class FLRun:
                                         self.hcfg.adapt_gain,
                                         self.hcfg.min_volume)
         if upd:
-            self._write_volumes(cclients, upd)
+            self._write_volumes(cohort, cclients, upd)
 
-    def _write_volumes(self, cclients: List[Client], upd: List[int]) -> None:
+    def _write_volumes(self, cohort: List[int], cclients: List[Client],
+                       upd: List[int]) -> None:
         for j in upd:
             cclients[j].helios_state = ST.set_volume(
                 cclients[j].helios_state, cclients[j].volume)
@@ -1272,9 +1284,10 @@ class BatchedFLRun(AsyncFLRun):
         # device values: _record_round converts them behind the eval gate
         return list(losses.unbind()), list(ratios.unbind())
 
-    def _write_volumes(self, cclients: List[Client], upd: List[int]) -> None:
+    def _write_volumes(self, cohort: List[int], cclients: List[Client],
+                       upd: List[int]) -> None:
         if self.participation:
-            super()._write_volumes(cclients, upd)
+            super()._write_volumes(cohort, cclients, upd)
         elif self._s_idx:
             self._sstate = ST.set_volumes(
                 self._sstate, [self.clients[i].volume for i in self._s_idx])
@@ -1312,6 +1325,346 @@ class BatchedFLRun(AsyncFLRun):
         self.sync_client_states()
         super().remove_client(cid)
         self._build_batched()
+
+
+
+@dataclasses.dataclass
+class ShardedFLRun(BatchedFLRun):
+    """Population-scale sync engine: the batched round over a clients group
+    of ranks (:mod:`repro_torch.launch.mesh`), the reference's
+    ``shard_map`` over a ``("clients",)`` mesh.
+
+    Three things on top of :class:`BatchedFLRun`, as in the reference:
+
+    * **Persistent population state.**  Every client's Helios state is one
+      host row (``core.soft_train.init_population``, no per-client dicts).
+      A round gathers its soft-training slots' rows onto the device and
+      scatters them back in place; other rows are never touched.
+    * **Padded cohort slots.**  The cohort is padded to ``ceil(K / shards)
+      · shards`` slots (``_kpad``); a padding slot repeats the first
+      client's batch without a host draw and gets weight 0.  Soft-training
+      slots train under their Eq. 2 masks, capable and padding slots under
+      all-ones masks, all in one vmapped step a local step; capable and
+      padding slots keep their state as it was.
+    * **Client-parallel rounds.**  Rank r trains slots ``[r·b, (r+1)·b)``
+      (``b = _kpad / shards``) as one ``torch.func.vmap`` step a local step,
+      so the masked kernels launch once a step and rank block.  Eq. 10 /
+      masked-mean aggregation is each rank's weighted partial sum plus one
+      ``all_reduce``; every rank receives the slots' new rows (state,
+      losses, ratios, error and control rows) by ``all_gather``, so every
+      rank's host population stays identical.
+
+    Every rank runs the same host loop from the same seeds, so each draws
+    the same cohort and batches.  Eq. 2 draws are host-named streams, so
+    ``begin_cycle`` / ``end_cycle`` run for a rank's soft slots only, where
+    the reference's program runs them for every slot and discards the
+    others' (no number differs).  The reference's compiled-program cache
+    (``_get_sharded_fn``) and its compile budget have no counterpart: the
+    port compiles nothing.  Same seed, same trajectory as ``FLRun`` and
+    ``BatchedFLRun`` up to rounding.
+    """
+
+    #: the clients group; None builds one over the default process group
+    #: (world 1 without one) with its training ranks capped at the cohort
+    group: Optional[ClientGroup] = None
+
+    def _init_helios(self) -> None:
+        # the population's rows are built stacked in _build_batched;
+        # sync_client_states writes them back into dicts on demand
+        pass
+
+    def _build_batched(self) -> None:
+        # _draw_cohort never returns more than the population, so the
+        # slot count is capped there too
+        k = min(self.participation, len(self.clients)) or len(self.clients)
+        self._group = self.group if self.group is not None \
+            else make_client_group(k, self.device)
+        if self._group.device.type != self.device.type:
+            raise ValueError(f"the clients group lives on "
+                             f"{self._group.device}, the run on {self.device}")
+        d = self._group.shards
+        self._kpad = -(-k // d) * d
+        if all(c.helios_state is None for c in self.clients):
+            self._pop_state = ST.init_population(
+                self.adapter.schema, [c.volume for c in self.clients],
+                [c.cid for c in self.clients])
+        else:
+            # membership changed after sync_client_states materialized
+            # every row: restack the dicts
+            self._pop_state = ST.host_states(ST.stack_states(
+                [c.helios_state for c in self.clients]))
+
+    def sync_client_states(self) -> None:
+        """Materialize each client's ``helios_state`` from its row
+        (checkpointing, inspection, elastic membership)."""
+        for i, c in enumerate(self.clients):
+            c.helios_state = self.client_state(i)
+
+    def client_state(self, i: int) -> dict:
+        """Row ``i`` (client-list position) of the population, as a state
+        dict on the run's device (a copy: rows change in place)."""
+        return ST.unstack_states(
+            ST.gather_states_host(self._pop_state, [i], self.device), 1)[0]
+
+    # -- template hooks ----------------------------------------------------
+    def _round_extras(self, row_clients: Sequence[Client]) -> tuple:
+        """The scheme's round inputs padded to ``_kpad`` slots: a padding
+        slot reads the first client's control row (its dc is masked out by
+        ``valid``) and trains from the current global at discount 1."""
+        sch, dev = self._scheme, self.device
+        pad = self._kpad - len(row_clients)
+        extras = ()
+        if sch.uses_control:
+            cids = [c.cid for c in row_clients]
+            extras += (self._c_global,
+                       self._ctrl_store.gather(cids + [cids[0]] * pad))
+        if sch.uses_stale_base:
+            flags = torch.tensor([1.0 if c.is_straggler else 0.0
+                                  for c in row_clients] + [0.0] * pad,
+                                 device=dev)
+            discs = torch.tensor([self._stale_disc if c.is_straggler else 1.0
+                                  for c in row_clients] + [1.0] * pad,
+                                 dtype=torch.float32, device=dev)
+            extras += (self._stale_base, flags, discs)
+        return extras
+
+    def _apply_round_outs(self, row_clients: Sequence[Client], outs) -> None:
+        """SCAFFOLD: the real slots' control rows back by cid, and
+        ``c_global += dc_sum / N`` (dc summed over valid slots only)."""
+        if self._scheme.uses_control:
+            new_rows, dc_sum = outs
+            k = len(row_clients)
+            self._ctrl_store.scatter([c.cid for c in row_clients],
+                                     tree_map(lambda x: x[:k], new_rows))
+            n = float(len(self.clients))
+            self._c_global = tree_map(lambda c, d: c + d / n,
+                                      self._c_global, dc_sum)
+
+    def _row_template(self, b: int, comp: bool) -> Dict[str, torch.Tensor]:
+        """Zero (b,) + shape leaves of everything a rank gathers for its
+        block, keyed ``part/name``: every rank sends the same shapes, and a
+        rank that trains nothing sends these."""
+        dev, g = self.device, self.global_params
+        rows = {"loss": torch.zeros(b, device=dev),
+                "ratio": torch.zeros(b, device=dev)}
+        if self._scheme.soft_training:
+            for part, dt in (("masks", torch.float32),
+                             ("scores", torch.float32),
+                             ("skip_counts", torch.int32)):
+                for k, shape in self.adapter.schema.items():
+                    rows[f"{part}/{k}"] = torch.zeros((b,) + tuple(shape),
+                                                      dtype=dt, device=dev)
+            for k in ("splits", "cycle"):
+                rows[k] = torch.zeros(b, dtype=torch.int64, device=dev)
+        for part, on in (("err", comp), ("ctrl", self._scheme.uses_control)):
+            if on:
+                for path, v in tree_paths(g):
+                    rows[f"{part}/{path}"] = torch.zeros(
+                        (b,) + tuple(v.shape), dtype=torch.float32,
+                        device=dev)
+        return rows
+
+    def _train_block(self, block: slice, slots: List[int],
+                     soft: List[bool], valid: torch.Tensor, batches: dict,
+                     extras: tuple, err, rows: Dict[str, torch.Tensor]
+                     ) -> tuple:
+        """This rank's ``block`` of the padded cohort's ``slots``
+        (population positions): Eq. 2 masks for the soft slots, one vmapped
+        training, scores and state for the soft slots, the scheme's and
+        the codec's per-slot work; ``extras`` and ``err`` as
+        :meth:`_round_extras` and the error store give them for every slot.
+        Fills ``rows`` in place; returns (trained or decoded params,
+        params-space masks or None, the codec's coordinates over valid
+        slots, SCAFFOLD's dc summed over valid slots), the last two None
+        when off."""
+        sch, g, dev = self._scheme, self.global_params, self.device
+        hcfg = sch.effective_hcfg(self.hcfg)
+        slots, soft, valid = slots[block], soft[block], valid[block]
+        batches = {n: v[block] for n, v in batches.items()}
+        b = len(slots)
+        s_pos = [j for j in range(b) if soft[j]]
+        masks = tree_map(lambda o: o.expand((b,) + tuple(o.shape)).clone(),
+                         self._ones)
+        if s_pos:
+            s_idx = torch.tensor(s_pos, device=dev)
+            sstate = ST.stack_states([
+                ST.begin_cycle(st, hcfg) for st in ST.unstack_states(
+                    ST.gather_states_host(self._pop_state,
+                                          [slots[j] for j in s_pos], dev),
+                    len(s_pos))])
+            for k, m in masks.items():
+                m.index_copy_(0, s_idx, sstate["masks"][k])
+
+        def per_slot(v, x):
+            return v.view((b,) + (1,) * x.dim())
+
+        params, stacked, corr = g, False, None
+        if sch.uses_control:
+            c_global = extras[0]
+            c_rows = tree_map(lambda x: x[block], extras[1])
+            corr = tree_map(torch.sub, c_global, c_rows)
+        if sch.uses_stale_base:
+            stale_base, flags, discs = (extras[0], extras[1][block],
+                                        extras[2][block])
+            params = tree_map(lambda sb, gg: torch.where(
+                per_slot(flags, gg) > 0, sb, gg), stale_base, g)
+            stacked = True
+        p, loss = self._train_batched(params, batches, masks, stacked, True,
+                                      corr)
+        if sch.uses_stale_base:
+            # a capable or padding slot is g + 1 * (y - g), as in the
+            # reference
+            p = tree_map(lambda gg, y, bb: (gg.float() + per_slot(discs, gg)
+                                            * (y.float() - bb.float())
+                                            ).to(gg.dtype), g, p, params)
+        fr = MK.selected_fractions(masks)
+        soft_t = torch.tensor(soft, device=dev)
+        rows["loss"] = loss
+        rows["ratio"] = torch.where(soft_t, fr, torch.ones_like(fr))
+        if s_pos:
+            if sch.use_delta_scores:
+                scores = torch.func.vmap(
+                    lambda pp: self.adapter.cycle_scores(pp, g))(
+                        tree_map(lambda t: t.index_select(0, s_idx), p))
+            else:                                          # random [12]
+                scores = sstate["scores"]
+            sstate = ST.end_cycle(sstate, scores, hcfg)
+            for part in ("masks", "scores", "skip_counts"):
+                for k, v in sstate[part].items():
+                    rows[f"{part}/{k}"].index_copy_(0, s_idx, v)
+            rows["splits"][s_idx] = torch.tensor(
+                [ST.key_row(key)[1] for key in sstate["rng"]], device=dev)
+            rows["cycle"][s_idx] = torch.as_tensor(sstate["cycle"],
+                                                   device=dev)
+        dc_sum = None
+        if sch.uses_control:
+            # option-II control update from the raw trained rows
+            inv = 1.0 / (self.local_steps * self.lr)
+            dc = tree_map(lambda gg, t, cg: (gg.float() - t.float()) * inv
+                          - cg, g, p, c_global)
+            for path, v in tree_paths(tree_map(torch.add, c_rows, dc)):
+                rows[f"ctrl/{path}"] = v
+            dc_sum = tree_map(lambda d: (d * per_slot(valid, d[0])).sum(0),
+                              dc)
+        mode = sch.agg_mode(self.hcfg)
+        pm = self.adapter.expand_masks_batch(masks, g) \
+            if mode == "masked_mean" or err is not None else None
+        coords = None
+        if err is not None:
+            # the codec runs on the block's own rows; only the coordinate
+            # count crosses ranks
+            delta = tree_map(lambda t, gg: t.float() - gg.float(), p, g)
+            sent, new_err, c = CP.compress_update_stacked(
+                delta, err, self.compression, self.comp_frac, self.comp_bits,
+                pm)
+            p = tree_map(lambda gg, x: (gg.float() + x).to(gg.dtype), g,
+                         sent)
+            for path, v in tree_paths(new_err):
+                rows[f"err/{path}"] = v
+            coords = (c * valid).sum()
+        return p, (pm if mode == "masked_mean" else None), coords, dc_sum
+
+    def _train_cohort(self, cohort: List[int], cclients: List[Client]):
+        """The padded cohort: batches drawn in cohort order on every rank,
+        this rank's block trained, rows gathered, Eq. 10 / masked mean as
+        partial sums and one ``all_reduce``, the real slots' rows written
+        back."""
+        sch, grp, g, dev = (self._scheme, self._group, self.global_params,
+                            self.device)
+        k, kpad = len(cohort), self._kpad
+        pad, b = kpad - k, kpad // grp.shards
+        slots = cohort + [cohort[0]] * pad
+        soft = [sch.soft_training and c.is_straggler for c in cclients] \
+            + [False] * pad
+        valid = torch.tensor([1.0] * k + [0.0] * pad, device=dev)
+        batches = self.adapter.sample_cohort(
+            self.rng, self.train_data, [c.data_idx for c in cclients],
+            self.local_steps, self.batch_size, pad_to=kpad)
+        comp = self._comp_active()
+        mode = sch.agg_mode(self.hcfg)
+        cids = [c.cid for c in cclients]
+        rows = self._row_template(b, comp)
+        block = slice(grp.rank * b, (grp.rank + 1) * b)
+        if grp.trains:
+            err = self._err_store.gather((cids + [cids[0]] * pad)[block]) \
+                if comp else None
+            p, pm, coords, dc_sum = self._train_block(
+                block, slots, soft, valid, batches,
+                self._round_extras(cclients), err, rows)
+        else:
+            # a rank past the shards trains nothing: its slots weigh 0, so
+            # it adds zeros to every sum
+            p = tree_map(lambda x: x.expand((b,) + tuple(x.shape)), g)
+            pm = tree_map(torch.ones_like, p) if mode == "masked_mean" \
+                else None
+            coords = torch.zeros((), device=dev)
+            dc_sum = tree_map(torch.zeros_like, g)
+        rows = grp.all_gather(rows)
+        ratios = rows["ratio"]
+        w = (ratios if mode != "uniform" else torch.ones_like(ratios)) * valid
+        a = (w / torch.clamp(w.sum(), min=1e-9))[block] if grp.trains \
+            else torch.zeros(b, device=dev)
+
+        def wa(x):
+            return a.view((b,) + (1,) * (x.dim() - 1))
+
+        if mode == "masked_mean":
+            sums = [(wa(t) * m * t.float()).sum(0) for m, t in
+                    zip(tree_leaves(pm), tree_leaves(p))] + \
+                [(wa(m) * m).sum(0) for m in tree_leaves(pm)]
+        else:
+            sums = [torch.tensordot(a, t.float(), dims=1)
+                    for t in tree_leaves(p)]
+        if comp:
+            sums.append(coords)
+        if sch.uses_control:
+            sums += tree_leaves(dc_sum)
+        sums = grp.all_reduce_sum(sums)
+        leaves = tree_leaves(g)
+        n = len(leaves)
+        paths = [path for path, _ in tree_paths(g)]
+        if mode == "masked_mean":
+            new = [torch.where(de > 0, nu / torch.clamp(de, min=1e-9),
+                               gg.float()).to(gg.dtype)
+                   for gg, nu, de in zip(leaves, sums[:n], sums[n:2 * n])]
+            at = 2 * n
+        else:
+            new = [t.to(gg.dtype) for gg, t in zip(leaves, sums[:n])]
+            at = n
+        self.global_params = unflatten(dict(zip(paths, new)))
+        if comp:
+            self.rec.accum("uplink_coords", sums[at])
+            at += 1
+            self._err_store.scatter(cids, unflatten(
+                {path: rows[f"err/{path}"][:k] for path in paths}))
+        outs = ()
+        if sch.uses_control:
+            outs = (unflatten({path: rows[f"ctrl/{path}"] for path in paths}),
+                    unflatten(dict(zip(paths, sums[at:at + n]))))
+        self._apply_round_outs(cclients, outs)
+        upd = [j for j in range(k) if soft[j]]
+        if upd:
+            sel = torch.tensor(upd, device=dev)
+            idx = [slots[j] for j in upd]
+            sub = {part: {key: rows[f"{part}/{key}"].index_select(0, sel)
+                          for key in self.adapter.schema}
+                   for part in ("masks", "scores", "skip_counts")}
+            seeds = self._pop_state["rng"]["seed"][np.asarray(idx)]
+            sub["rng"] = [ST.row_key(s, n) for s, n in
+                          zip(seeds, rows["splits"][sel].tolist())]
+            sub["cycle"] = rows["cycle"][sel].cpu().numpy()
+            sub["volume"] = self._pop_state["volume"][np.asarray(idx)]
+            ST.scatter_states_host(self._pop_state, idx, sub)
+        # device values: _record_round converts them behind the eval gate
+        return list(rows["loss"][:k].unbind()), list(ratios[:k].unbind())
+
+    def _write_volumes(self, cohort: List[int], cclients: List[Client],
+                       upd: List[int]) -> None:
+        self._pop_state["volume"][np.asarray([cohort[j] for j in upd])] = \
+            np.asarray([cclients[j].volume for j in upd], np.float32)
+
+    def _finish_sync(self) -> None:
+        pass                # the population rows are the state of record
 
 
 def setup_clients(profiles: Sequence[DeviceProfile],

@@ -75,6 +75,9 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.drivers.heterogeneous_fl\n"
         "import repro_torch.drivers.serve_while_train\n"
         "import repro_torch.drivers.federated_lm\n"
+        "import repro_torch.launch.mesh, repro_torch.drivers.population_scale\n"
+        "from repro_torch.federated import ShardedFLRun\n"
+        "assert repro_torch.launch.mesh.make_client_group(4, 'cpu').size == 1\n"
         "import repro_torch.obs, repro_torch.obs.report\n"
         "import repro_torch.obs.__main__\n"
         "import repro_torch.checkpoint, repro_torch.checkpoint.wire\n"
