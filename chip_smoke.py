@@ -57,9 +57,10 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    against ``FLRun``'s plain path (ratios to one float32 ulp) and the
    five-step drift beside a 2^-23-nudged twin's; asyn / afo
    ``run_async(4)`` on the bucket engine against the sequential plain
-   loop at 1e-4; the 2 + 2 round walls of both engines on both paths in
-   turns and a profiled batched round; a population of 64 clients (half
-   stragglers, IID, helios, 1 local step of batch 16): the round wall of
+   loop at 1e-4; the 2 + 2 round walls of both engines on both paths,
+   one turn each, and a profiled batched round; a population of 64
+   clients (half stragglers, IID, helios, 1 local step of batch 16): the
+   round wall of
    ``FLRun`` against ``BatchedFLRun`` on both paths, the launches of a
    round, a profiled batched round and its peak memory;
 4i. the gauntlet's last schemes and the comparison drivers on the same
@@ -138,10 +139,10 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    under the profiler;
 4k. the serving plane: ``repro_torch.launch.serve.main`` at batch 8,
    prompt 512, 32 generated tokens, on the CLI's card default
-   ``kernels="cuda"``, on DeepSeek-7B (all 30 layers), Zamba2-1.2B (all
-   38: ``ssd_diag`` once a Mamba2 layer a prefill, never in a decode
-   step) and Granite-3.0-1B-A400M
-   (all 24), counters zeroed before and read after; every logit finite;
+   ``kernels="cuda"``, on DeepSeek-7B (8 of 30 layers, the CLI's
+   ``--layers``), Zamba2-1.2B (12 of 38: ``ssd_diag`` once a Mamba2 layer
+   a prefill, never in a decode step) and Granite-3.0-1B-A400M
+   (8 of 24), counters zeroed before and read after; every logit finite;
    the last decode step's logits held against one prefill over the same
    tokens at max(1e-4, twice a 2^-23-nudged twin's drift) (Granite with
    the capacity-free dense dispatch and its routing flips printed,
@@ -158,7 +159,7 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    version and its bound;
 4l. the training launch: xLSTM-125M at full size (103.6 M params, all 12
    blocks) through ``repro_torch.launch.train.main`` at batch 8 x 128 for
-   4 steps with a checkpoint at step 2, again without checkpoints (the
+   3 steps with a checkpoint at step 2, again without checkpoints (the
    card's run-to-run spread), then resumed from step 2: no kernel
    launched, the resumed run's final state within twice the spread of
    the uninterrupted one's (bit for bit when the card repeats itself);
@@ -188,7 +189,8 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    bucket, block live and dead), held against their plain versions and
    repeated bit-identical, then timed at batch 32 beside their bounds,
    the plain versions and ``torch.matmul`` / ``torch.bmm``; Fig. 5
-   (``table_convergence``, 14 rounds, ResNet-18's cut to 7, lr 0.02) at
+   (``table_convergence``, 14 rounds, AlexNet's cut to 7 and ResNet-18's
+   to 4, lr 0.02) at
    full width on LeNet, AlexNet and ResNet-18, 2 + 2
    and 3 + 3 fleets, five schemes, on the kernel path, AlexNet also on
    the plain path (its nudged twin's spread is
@@ -270,7 +272,36 @@ Phases (any failure exits nonzero; nothing is caught and ignored):
    under ``topk``: set-up time, a warm-up round, 2 rounds with exact
    launches, finite params, undrawn rows at their initial values, an
    error row for each drawn client only, the round wall, host bytes and
-   the peak.
+   the peak;
+4q. the batched engines on the MoE and xLSTM families, and long
+   sequences: flash at Granite's folded cohort shape (8, 16, 512, 64)
+   held against its plain version and timed beside f32 SDPA and its
+   bounds; Granite-3.0-1B-A400M at full width (6 of 24 layers) on
+   ``BatchedFLRun`` helios ``run_sync(2)`` at one local step with every
+   counter zeroed before and read after (flash once a layer, local step
+   and cohort: 24, nothing else), its peak, a warm round, each cohort's
+   vmapped step against per-client plain autograd at 1e-4 (the plain
+   path's expert choices replayed); on the capacity-free dense dispatch,
+   each kernel-path step replaying the plain path's choices, two rounds
+   held at 1e-4 against the batched plain path and ``FLRun``'s, asyn
+   ``run_async(4)`` on the bucket engine against ``FLRun.run_async``'s
+   plain path (events equal), and one ``ShardedFLRun`` round at
+   world 1 against ``BatchedFLRun``'s; xLSTM-125M uncut (batch 8 x 128)
+   on ``BatchedFLRun`` helios (one round) and the bucket engine's asyn
+   (``run_async(2)``), no kernel launched, held against ``FLRun`` at
+   1e-4;
+   the masked pair at the
+   train_4k step's six MLP layouts (M 8192, K 4096, N 11008, P 0.5)
+   held against its plain version and the forwards timed beside their
+   bound and ``torch.matmul``; train_4k at DeepSeek-7B width (2 layers,
+   batch 2 x 4096): one ``make_train_step`` Helios step on the chunked
+   attention (no flash launch) held against the plain path at 1e-4, a
+   warm step and the peak; prefill_32k / decode_32k at the same width
+   (batch 1): a 32768-token prefill, 1024 teacher-forced decode steps
+   from a 31744-token prefill padded to 32768, the last step's logits
+   held against the long prefill's at max(1e-4, twice a 2^-23-nudged
+   twin's drift; the twin runs only past 1e-4), prefill and decode
+   times.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``; the
 line before it is the card's name and power limit, and before that the
@@ -1549,14 +1580,13 @@ def batched_path(st) -> dict:
 def time_batched_rounds(st) -> None:
     """Whole helios rounds of the 2 + 2 fleet (5 local steps, no
     evaluation) on ``FLRun`` and ``BatchedFLRun``, kernel and plain path,
-    in turns after a warm-up round; then one batched kernel-path round
-    under the profiler."""
+    one turn each after a warm-up round (the second turn of each pairing
+    went for the whole script's time limit); then one batched kernel-path
+    round under the profiler."""
     from repro_torch.federated import BatchedFLRun, FLRun
     walls = {}
     for engine, kernels in ((FLRun, "cuda"), (BatchedFLRun, "cuda"),
-                            (BatchedFLRun, "reference"), (FLRun, "reference"),
-                            (FLRun, "reference"), (BatchedFLRun, "reference"),
-                            (BatchedFLRun, "cuda"), (FLRun, "cuda")):
+                            (BatchedFLRun, "reference"), (FLRun, "reference")):
         run = make_run("helios", kernels, st, engine=engine)
         timed_run(run, 1, eval_every=0)
         _, wall = timed_run(run, 2, eval_every=0)
@@ -2306,7 +2336,7 @@ def lm_setting():
 
 
 def make_lm_run(scheme: str, kernels: str, st, local_steps: int = 2,
-                nudge: float = 0.0, engine=None):
+                nudge: float = 0.0, engine=None, batch_size: int = LM_BATCH):
     """A token-LM run on the card (``engine`` ``FLRun`` unless given) over
     the 2 + 2 fleet of ``st``, from its host params."""
     from repro_torch.federated import FLRun, make_fleet, setup_clients
@@ -2316,7 +2346,7 @@ def make_lm_run(scheme: str, kernels: str, st, local_steps: int = 2,
     if nudge:
         init = tree_map(lambda v: v * (1 + nudge), init)
     return (engine or FLRun)(cfg, hcfg, scheme, clients, train, test,
-                             batch_size=LM_BATCH, local_steps=local_steps,
+                             batch_size=batch_size, local_steps=local_steps,
                              lr=0.05, eval_batch=4, kernels=kernels,
                              device="cuda", init_params=init)
 
@@ -2562,15 +2592,17 @@ def time_lm_mlp() -> dict:
 
 
 def time_lm_round(st) -> None:
-    """One helios LM round (no evaluation), kernel path against plain path
-    in turns, then one kernel-path round under the profiler."""
+    """One helios LM round (no evaluation), kernel path and plain
+    path, one turn each (the second turn of each went for the whole
+    script's time limit), then one kernel-path round under the
+    profiler."""
     walls = {"cuda": [], "reference": []}
-    for kernels in ("cuda", "reference", "reference", "cuda"):
+    for kernels in ("reference", "cuda"):
         run = make_lm_run("helios", kernels, st)
         timed_run(run, 1, eval_every=0)                  # warm-up round
         _, wall = timed_run(run, 1, eval_every=0)
         walls[kernels].append(wall)
-        if kernels == "cuda" and len(walls["cuda"]) == 2:
+        if kernels == "cuda":
             profile_round(run, "helios LM round")
         del run
         _free()
@@ -2874,15 +2906,17 @@ def time_ssd(worst: float, launches: int, per_round: int,
 
 
 def time_hybrid_round(st) -> None:
-    """One helios hybrid round (no evaluation), kernel path against plain
-    path in turns, then one kernel-path round under the profiler."""
+    """One helios hybrid round (no evaluation), kernel path and plain
+    path, one turn each (the second turn of each went for the whole
+    script's time limit), then one kernel-path round under the
+    profiler."""
     walls = {"cuda": [], "reference": []}
-    for kernels in ("cuda", "reference", "reference", "cuda"):
+    for kernels in ("reference", "cuda"):
         run = make_lm_run("helios", kernels, st)
         timed_run(run, 1, eval_every=0)                  # warm-up round
         _, wall = timed_run(run, 1, eval_every=0)
         walls[kernels].append(wall)
-        if kernels == "cuda" and len(walls["cuda"]) == 2:
+        if kernels == "cuda":
             profile_round(run, "helios hybrid round")
         del run
         _free()
@@ -3276,15 +3310,17 @@ def time_granite_flash(worst: float, launches: int, per_round: int) -> dict:
 
 
 def time_granite_round(st) -> None:
-    """One helios Granite round (no evaluation), kernel path against plain
-    path in turns, then one kernel-path round under the profiler."""
+    """One helios Granite round (no evaluation), kernel path and plain
+    path, one turn each (the second turn of each went for the whole
+    script's time limit), then one kernel-path round under the
+    profiler."""
     walls = {"cuda": [], "reference": []}
-    for kernels in ("cuda", "reference", "reference", "cuda"):
+    for kernels in ("reference", "cuda"):
         run = make_lm_run("helios", kernels, st)
         timed_run(run, 1, eval_every=0)                  # warm-up round
         _, wall = timed_run(run, 1, eval_every=0)
         walls[kernels].append(wall)
-        if kernels == "cuda" and len(walls["cuda"]) == 2:
+        if kernels == "cuda":
             profile_round(run, "helios Granite round", host_top=8,
                           groups=DISPATCH_OPS)
         del run
@@ -3317,7 +3353,12 @@ def granite_phase(kernels: list) -> None:
 
 #: the standalone generation cell: batch, prompt, generated tokens
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 512, 32
-SERVE_MODELS = ("deepseek-7b", "zamba2-1.2b", "granite-moe-1b-a400m")
+#: phase 4k's models and the depth each is served at (the CLI's
+#: ``--layers``): the whole script's time limit cut them from 30, 38 and
+#: 24 (37.0, 29.1 and 23.0 s at full depth, the draw of DeepSeek-7B's
+#: 6.91 B params the most of it)
+SERVE_MODELS = {"deepseek-7b": 8, "zamba2-1.2b": 12,
+                "granite-moe-1b-a400m": 8}
 #: serve while training: Zamba2 width cut to this many Mamba2 layers (the
 #: publish through zlib, ~17 MB/s on a host core, sets the phase's time)
 SWT_LAYERS = 2
@@ -3331,15 +3372,17 @@ SWT_ROUNDS = 1
 SWT_RATE_HZ = 10.0
 
 
-def _serve_cli(arch: str, kernels: str) -> dict:
-    """``repro_torch.launch.serve.main`` at the serving cell, with every
-    kernel counter zeroed before and read after."""
+def _serve_cli(arch: str, kernels: str, layers: int = 0) -> dict:
+    """``repro_torch.launch.serve.main`` at the serving cell (``layers``:
+    the depth cut to that many), with every kernel counter zeroed before
+    and read after."""
     from repro_torch.launch import serve as SV
     report = {}
     _reset_all()
     SV.main(["--arch", arch, "--batch", str(SERVE_BATCH), "--prompt-len",
              str(SERVE_PROMPT), "--gen", str(SERVE_GEN), "--kernels",
-             kernels], report=report)
+             kernels] + (["--layers", str(layers)] if layers else []),
+            report=report)
     report["launches"] = _all_launches()
     return report
 
@@ -3505,8 +3548,9 @@ def _serve_readings(srv, params, batch, toks) -> dict:
             "decode_kernels_per_step": sum(e.count for e in rows) / 4}
 
 
-def serve_model(arch: str) -> dict:
-    """One model at full width and depth: generation through the CLI, the
+def serve_model(arch: str, layers: int) -> dict:
+    """One model at full width, depth cut to ``layers``: generation through
+    the CLI, the
     cache-consistency hold beside a nudged twin, (Zamba2) the kernel path
     against the plain path and the ``ssd_diag`` counts, the readings."""
     from repro_torch.launch import serve as SV
@@ -3515,7 +3559,7 @@ def serve_model(arch: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     hybrid = arch.startswith("zamba2")
     moe_model = arch.startswith("granite")
-    rep = _serve_cli(arch, "cuda")
+    rep = _serve_cli(arch, "cuda", layers)
     cfg, params, batch = rep["cfg"], rep["params"], rep["batch"]
     toks, srv = rep["tokens"], rep["server"]
     n_params = sum(v.numel() for v in tree_leaves(params))
@@ -3670,8 +3714,8 @@ def serve_phase(kernels: list) -> None:
     from repro_torch.kernels import ssd_scan as SS
     t0 = time.perf_counter()
     models = {}
-    for arch in SERVE_MODELS:
-        models[arch] = serve_model(arch)
+    for arch, layers in SERVE_MODELS.items():
+        models[arch] = serve_model(arch, layers)
         _free()
     swt = serve_while_train_path()
     _free()
@@ -3716,8 +3760,8 @@ def serve_phase(kernels: list) -> None:
 LAUNCH_CALLS = {"masked_matmul": 6, "masked_matmul_dk": 3,
                 "flash_attention": 1, "ssd_diag": 0}
 #: xLSTM-125M through the train CLI: batch 8 x 128, volume 0.5, masks
-#: re-drawn every 2 steps, a checkpoint every 2 of 4 steps
-XL_STEPS, XL_EVERY = 4, 2
+#: re-drawn every 2 steps, a checkpoint at step 2 of 3 and at the last
+XL_STEPS, XL_EVERY = 3, 2
 XL_ARGS = ["--arch", "xlstm-125m", "--steps", str(XL_STEPS), "--batch", "8",
            "--seq", "128", "--volume", "0.5", "--cycle-steps", "2",
            "--ckpt-every", str(XL_EVERY), "--log-every", "1"]
@@ -4328,8 +4372,9 @@ REPRO_CALLS = (("fig5", {"models": ("lenet",)}, "lenet"),
                ("fig7", {}, "lenet"), ("ablation", {}, "lenet"))
 #: phase 4m's rounds for a model's Fig. 5 where they are cut from the
 #: reference's (the whole script's time limit: ResNet-18's 10 runs of 14
-#: rounds took 33-42 s and stay at chance)
-REPRO_CUT_ROUNDS = {"resnet18": 7}
+#: rounds took 33-42 s and stay at chance; 7 rounds took 22.8 s on a slow
+#: host; AlexNet's 10 runs of 14 rounds on two paths took 24.2 s)
+REPRO_CUT_ROUNDS = {"resnet18": 4, "alexnet": 7}
 
 
 def repro_figures(twins=(), cut_rounds=None) -> dict:
@@ -5574,6 +5619,579 @@ def population_phase(kernels: list) -> None:
     log(f"phase 4p took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 4q: the MoE and xLSTM cohorts, and long sequences
+# ---------------------------------------------------------------------------
+
+#: Granite's cohort of 2 folded into flash's batch axis: (C·B, H, S, hd)
+GR_COHORT_FLASH = (COHORT * LM_BATCH,) + GR_FLASH[1:]
+#: xLSTM-125M's cohort cell: phase 4l's batch 8 x 128, uncut
+XL_COHORT_BATCH, XL_COHORT_SEQ = 8, 128
+#: the bucket engines' capable cycles in phase 4q: Granite's, and
+#: xLSTM's (its host-bound steps take ~1.5 s an event)
+Q_ASYNC_CYCLES, XL_ASYNC_CYCLES = 4, 2
+#: long sequences at DeepSeek-7B width, depth cut 30 -> 2: train_4k at
+#: batch 2 of 256; prefill_32k at batch 1 of 32, then decode teacher-forced
+#: from a prefill LS_DECODE tokens shorter (both lengths multiples of 1024,
+#: which the chunk split takes)
+LS_LAYERS, LS_TRAIN_BATCH, LS_TRAIN_SEQ = 2, 2, 4096
+LS_PREFILL, LS_DECODE = 32768, 1024
+#: the train_4k step's masked products: M = batch x 4096 = 8192
+LS_TOKENS = LS_TRAIN_BATCH * LS_TRAIN_SEQ
+LS_MLP = mlp_calls(LS_TOKENS, LM_D, LM_FF)
+
+
+class ChoiceTap:
+    """Records and replays the port's top-k expert choices
+    (``repro_torch.models.moe.top_k``) in call order, inside
+    ``torch.func`` transforms: ``record`` keeps each call's indices,
+    ``replay`` hands each call the oldest kept indices and gathers its own
+    probabilities there.  It keeps no statistics (:class:`RouteTap` does),
+    so a recorded tensor is used only inside the transform that made it."""
+
+    def __init__(self):
+        self.queue = collections.deque()
+
+    @contextlib.contextmanager
+    def use(self, mode: str):
+        from repro_torch.models import moe
+        orig = moe.top_k
+
+        def tap(probs, k):
+            if mode == "record":
+                w, idx = orig(probs, k)
+                self.queue.append(idx)
+                return w, idx
+            idx = self.queue.popleft()
+            return probs.gather(-1, idx), idx
+
+        moe.top_k = tap
+        try:
+            yield self
+        finally:
+            moe.top_k = orig
+
+
+def _shadow_choices(run) -> None:
+    """Each local step of ``run`` (kernel path, a vmapped cohort or a
+    client) first runs the plain path without grad from the same params
+    and batch, recording its expert choices, then the kernel path replays
+    them; the batched engines' vmapped step is rebuilt around the new
+    loss."""
+    from repro_torch.federated import runtime
+    ad, tap = run.adapter, ChoiceTap()
+    plain_rt = {**ad.rt, "kernels": "reference"}
+    kernel_loss = ad.loss_fn
+
+    def loss_fn(params, batch, masks):
+        with torch.no_grad(), tap.use("record"):
+            ad.api.loss_fn(params, batch, ad.cfg, plain_rt, masks)
+        with tap.use("replay"):
+            return kernel_loss(params, batch, masks)
+
+    ad.loss_fn = loss_fn
+    if hasattr(run, "_train_batched"):
+        run._train_batched = runtime._make_batched_local_train(ad, run.opt)
+
+
+def _dense_dispatch(run):
+    """Route ``run``'s MoE blocks through the capacity-free dense dispatch
+    (training and evaluation)."""
+    run.adapter.rt["moe_impl"] = "dense"
+    run.adapter.eval_rt["moe_impl"] = "dense"
+    return run
+
+
+def check_granite_cohort_step(st, run) -> None:
+    """One vmapped kernel-path step of each cohort (the global params, each
+    client its own batch and masks) against per-client plain autograd, the
+    plain path's expert choices replayed into the vmapped step (passed in
+    on the client axis): loss and every gradient within 1e-4 relative."""
+    from repro_torch.core import soft_train as ST
+    from repro_torch.federated.adapter import make_adapter
+    from repro_torch.models.module import tree_paths
+    cfg, _, train, _, _, _ = st
+    batch = {"tokens": torch.as_tensor(
+        train["tokens"][:COHORT * LM_BATCH]).cuda().reshape(
+            COHORT, LM_BATCH, -1)}
+    plain = make_adapter(cfg, "reference", BLOCK, torch.device("cuda"))
+    tap = ChoiceTap()
+    step = torch.func.grad_and_value(run.adapter.loss_fn)
+
+    def replayed(params, b, masks, routes):
+        tap.queue = collections.deque(routes)
+        with tap.use("replay"):
+            return step(params, b, masks)
+
+    strag = ST.stack_states([c.helios_state for c in run.clients
+                             if c.is_straggler])["masks"]
+    for who, masks, m_dim in (("straggler cohort", strag, 0),
+                              ("capable cohort", run._ones, None)):
+        params = dict(tree_paths(run.global_params))
+        want, routes = [], []
+        for i in range(COHORT):
+            for v in params.values():
+                v.requires_grad_(True)
+            mi = masks if m_dim is None else {k: v[i] for k, v in
+                                              masks.items()}
+            tap.queue.clear()
+            with tap.use("record"):
+                li = plain.loss_fn(run.global_params,
+                                   {"tokens": batch["tokens"][i]}, mi)
+            routes.append(list(tap.queue))
+            gi = torch.autograd.grad(li, list(params.values()))
+            for v in params.values():
+                v.requires_grad_(False)
+            want.append((li.detach(), dict(zip(params, gi))))
+            del gi, li
+        routes = [torch.stack(r) for r in zip(*routes)]
+        grads, loss = torch.func.vmap(
+            replayed, in_dims=(None, 0, m_dim, 0))(run.global_params, batch,
+                                                   masks, routes)
+        grads = dict(tree_paths(grads))
+        worst, at = 0.0, ""
+        for i, (li, gi) in enumerate(want):
+            if not abs(float(loss[i] - li)) <= F32_TOL * abs(float(li)):
+                raise AssertionError(f"Granite cohort {who}: loss "
+                                     f"{float(loss[i])} vs {float(li)}")
+            for key, gk in gi.items():
+                d = float((grads[key][i] - gk).abs().max()) / \
+                    max(float(gk.abs().max()), 1e-30)
+                if d > worst:
+                    worst, at = d, key
+        log(f"Granite cohort step {who}: losses {[float(v) for v in loss]}, "
+            f"{len(routes)} router calls replayed, worst max|grad diff|/"
+            f"max|grad| against per-client plain autograd {worst:.3e} ({at})")
+        del grads, loss, want, routes
+        _free()
+        if not worst <= F32_TOL:
+            raise AssertionError(f"Granite cohort {who}: the vmapped step "
+                                 f"disagrees with plain autograd ({worst} at "
+                                 f"{at})")
+
+
+def granite_cohort_path() -> dict:
+    """Granite-3.0-1B-A400M at full width (``GR_LAYERS`` layers) on the
+    batched engines: ``BatchedFLRun`` helios ``run_sync(2)`` x 1 local step
+    on the kernel path (grouped dispatch, every counter zeroed before and
+    read after: flash once a layer, local step and cohort, nothing else),
+    its peak and a warm round; each cohort's vmapped step against plain
+    autograd; then, on the dense dispatch, the kernel path (each step the
+    plain path's choices replayed) held at 1e-4 against the batched plain
+    path and ``FLRun``'s plain path, the bucket engine's asyn against
+    ``FLRun.run_async``'s plain path, and one ``ShardedFLRun`` round
+    at world 1 against ``BatchedFLRun``'s (grouped dispatch)."""
+    from repro_torch.federated import (AsyncFLRun, BatchedFLRun, FLRun,
+                                       ShardedFLRun)
+    from repro_torch.models.module import tree_leaves, tree_paths
+    st = granite_setting()
+    cfg, init = st[0], st[5]
+    copy = 4 * sum(v.numel() for v in tree_leaves(init)) / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    _reset_all()
+    run = make_lm_run("helios", "cuda", st, local_steps=1,
+                      engine=BatchedFLRun)
+    # the first round's params are the population engine's hold below
+    hist, wall = timed_run(run, 1)
+    first = (list(hist), _host_params(run))
+    hist, wall2 = timed_run(run, 1)
+    wall += wall2
+    out = {"launches": _cohort_launches(
+        "Granite cohort batched helios",
+        {"flash_attention": cfg.num_layers * COHORTS * 2}),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "walls": {"batched cuda": wall}}
+    for row in hist:
+        log("  history", json.dumps(row))
+    for k, v in tree_paths(run.global_params):
+        if not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"Granite cohort: non-finite {k}")
+    strag = [r for c, r in zip(run.clients, hist[-1]["ratios"])
+             if c.is_straggler]
+    if not strag or max(strag) >= 1.0:
+        raise AssertionError(f"Granite cohort straggler ratios not below 1: "
+                             f"{strag}")
+    _, out["round_s"] = timed_run(run, 1, eval_every=0)
+    log(f"Granite cohort batched helios: 2 rounds x 1 local step in "
+        f"{wall:.3f} s (evaluation included), a third round "
+        f"{out['round_s']:.3f} s; peak {out['peak_gib']:.2f} GiB against "
+        f"{copy:.2f} GiB a model copy ({out['peak_gib'] / copy:.1f} copies)"
+        f"; FLRun's peak at this depth was 14.30 GiB (PR 28)")
+    check_granite_cohort_step(st, run)
+    del run
+    _free()
+
+    host, hists = {}, {}
+    for name, kernels, engine in (("batched cuda", "cuda", BatchedFLRun),
+                                  ("batched plain", "reference",
+                                   BatchedFLRun),
+                                  ("FLRun plain", "reference", FLRun)):
+        r = _dense_dispatch(make_lm_run("helios", kernels, st, local_steps=1,
+                                        engine=engine))
+        if kernels == "cuda":
+            _shadow_choices(r)
+        hists[name], out["walls"][name + " dense"] = timed_run(r, 2)
+        host[name] = _host_params(r)
+        del r
+        _free()
+    out["vs_batched_plain"] = _hold_lm(
+        "Granite cohort batched kernel vs batched plain (dense dispatch)",
+        hists["batched cuda"], host["batched cuda"], hists["batched plain"],
+        host["batched plain"], False)
+    out["vs_flrun_plain"] = _hold_lm(
+        "Granite cohort batched kernel vs FLRun plain (dense dispatch)",
+        hists["batched cuda"], host["batched cuda"], hists["FLRun plain"],
+        host["FLRun plain"], True)
+    log(f"Granite cohort helios run_sync(2) x 1 local step, dense dispatch, "
+        f"plain choices replayed into the kernel path: max|param diff| "
+        f"batched kernel vs batched plain {out['vs_batched_plain']:.3e}, vs "
+        f"FLRun plain {out['vs_flrun_plain']:.3e}")
+    del host, hists
+
+    runs, walls = {}, {}
+    for name, kernels, engine in (("bucket cuda", "cuda", AsyncFLRun),
+                                  ("FLRun plain", "reference", FLRun)):
+        _reset_all()
+        r = _dense_dispatch(make_lm_run("asyn", kernels, st, local_steps=1,
+                                        engine=engine))
+        if kernels == "cuda":
+            _shadow_choices(r)
+        _, walls[name] = timed_async(r, Q_ASYNC_CYCLES,
+                                     snapshot_cap=HY_SNAPSHOT_CAP)
+        if name == "bucket cuda":
+            buckets = list(r.bucket_sizes)
+            out["async_launches"] = _cohort_launches(
+                f"Granite bucket engine asyn (buckets {buckets})",
+                {"flash_attention": cfg.num_layers * len(buckets)})
+        runs[name] = (r.events_processed, list(r.history), _host_params(r))
+        del r
+        _free()
+    ev = {k: v[0] for k, v in runs.items()}
+    out["async_vs_flrun"] = _host_diff(runs["bucket cuda"][2],
+                                       runs["FLRun plain"][2])
+    log(f"Granite asyn run_async({Q_ASYNC_CYCLES}) x 1 local step, dense "
+        f"dispatch: buckets {buckets}, events {json.dumps(ev)}; max|param "
+        f"diff| bucket kernel vs FLRun plain {out['async_vs_flrun']:.3e}; "
+        f"walls s {json.dumps(walls)}")
+    if len(set(ev.values())) != 1 or not out["async_vs_flrun"] <= F32_TOL:
+        raise AssertionError(f"Granite bucket engine: events {ev}, params "
+                             f"{out['async_vs_flrun']}")
+    del runs
+
+    _reset_all()
+    r = make_lm_run("helios", "cuda", st, local_steps=1, engine=ShardedFLRun)
+    hist, out["walls"]["sharded one round"] = timed_run(r, 1)
+    out["sharded_launches"] = _cohort_launches(
+        "Granite ShardedFLRun world 1, one round",
+        {"flash_attention": cfg.num_layers})
+    out["sharded_vs_batched"] = _hold_lm(
+        "Granite ShardedFLRun (world 1) vs BatchedFLRun, one round",
+        hist, _host_params(r), first[0], first[1], True)
+    del r, first
+    _free()
+    log(f"Granite ShardedFLRun world 1 against BatchedFLRun, one helios "
+        f"round: max|param diff| {out['sharded_vs_batched']:.3e}; walls s "
+        f"{json.dumps(out['walls'])}")
+    out.update(buckets=buckets, events=ev, async_walls=walls,
+               copy_gib=copy)
+    return out
+
+
+def xlstm_setting():
+    """xLSTM-125M uncut (12 blocks, sLSTM at 5 and 11) on Markov-topic
+    streams at phase 4l's 8 x 128, the 2 + 2 fleet, 4 held-out streams."""
+    from repro_torch.configs import XLSTM_125M, HeliosConfig
+    from repro_torch.data.federated import partition_by_topic
+    from repro_torch.data.synthetic import markov_topic_tokens
+    from repro_torch.models import init_params
+    from repro_torch.models.module import tree_leaves
+    cfg = XLSTM_125M
+    tokens, topics = markov_topic_tokens(256, XL_COHORT_SEQ, LM_VOCAB,
+                                         n_topics=8)
+    # one evaluation batch: every capable completion of the asyn runs
+    # evaluates, and xLSTM's forward is host-bound
+    test_tokens, _ = markov_topic_tokens(4, XL_COHORT_SEQ, LM_VOCAB,
+                                         n_topics=8, seed=9)
+    parts = partition_by_topic(topics, 4, topics_per_client=2)
+    init = init_params(cfg, 0, "cpu")
+    log(f"xLSTM config: {cfg.name} uncut ({cfg.num_layers} blocks, sLSTM at "
+        f"{cfg.slstm_layers}, d_model {cfg.d_model}), "
+        f"{sum(v.numel() for v in tree_leaves(init)) / 1e6:.1f} M params; "
+        f"batch {XL_COHORT_BATCH} x {XL_COHORT_SEQ}")
+    return cfg, HeliosConfig(), {"tokens": tokens}, {"tokens": test_tokens}, \
+        parts, init
+
+
+def xlstm_cohort_path() -> dict:
+    """xLSTM-125M on ``BatchedFLRun`` helios, one round of one local step
+    (no kernel launched, as in the reference) held at 1e-4 against
+    ``FLRun``'s (its host-bound steps take ~1.5 s a client: the two-round
+    holds are the CPU tests'), a warm round's wall, then the bucket
+    engine's asyn against ``FLRun.run_async``'s: events equal, params
+    within 1e-4."""
+    from repro_torch.federated import AsyncFLRun, BatchedFLRun, FLRun
+    st = xlstm_setting()
+    out, host, hists, walls = {}, {}, {}, {}
+    for name, engine in (("batched", BatchedFLRun), ("FLRun", FLRun)):
+        _reset_all()
+        r = make_lm_run("helios", "cuda", st, local_steps=1, engine=engine,
+                        batch_size=XL_COHORT_BATCH)
+        hists[name], walls[name] = timed_run(r, 1)
+        host[name] = _host_params(r)
+        if name == "batched":
+            out["launches"] = _cohort_launches("xLSTM cohort batched helios",
+                                               {})
+            strag = [x for c, x in zip(r.clients, hists[name][-1]["ratios"])
+                     if c.is_straggler]
+            if not strag or max(strag) >= 1.0:
+                raise AssertionError(f"xLSTM cohort straggler ratios not "
+                                     f"below 1: {strag}")
+            _, out["round_s"] = timed_run(r, 1, eval_every=0)
+        del r
+        _free()
+    for row in hists["batched"]:
+        log("  history", json.dumps(row))
+    out["vs_flrun"] = _hold_lm("xLSTM cohort batched vs FLRun",
+                               hists["batched"], host["batched"],
+                               hists["FLRun"], host["FLRun"], True)
+    runs = {}
+    for name, engine in (("bucket", AsyncFLRun), ("FLRun", FLRun)):
+        r = make_lm_run("asyn", "cuda", st, local_steps=1, engine=engine,
+                        batch_size=XL_COHORT_BATCH)
+        _, walls[name + " asyn"] = timed_async(r, XL_ASYNC_CYCLES,
+                                               snapshot_cap=HY_SNAPSHOT_CAP)
+        runs[name] = (r.events_processed, list(r.history), _host_params(r),
+                      list(getattr(r, "bucket_sizes", [])))
+        del r
+        _free()
+    (ea, ha, pa, buckets), (eb, hb, pb, _) = runs["bucket"], runs["FLRun"]
+    out["async_vs_flrun"] = _host_diff(pa, pb)
+    if any(_all_launches().values()):
+        raise AssertionError(f"xLSTM launched kernels: {_all_launches()}")
+    log(f"xLSTM cohort helios: batched vs FLRun {out['vs_flrun']:.3e}; a "
+        f"warm batched round {out['round_s']:.3f} s; asyn "
+        f"run_async({XL_ASYNC_CYCLES}): buckets {buckets}, events {ea} / "
+        f"{eb}, bucket vs FLRun {out['async_vs_flrun']:.3e}; walls s "
+        f"{json.dumps(walls)}")
+    if ea != eb or not out["async_vs_flrun"] <= F32_TOL:
+        raise AssertionError(f"xLSTM bucket engine: events {ea} vs {eb}, "
+                             f"params {out['async_vs_flrun']}")
+    out.update(walls=walls, buckets=buckets, events=ea)
+    return out
+
+
+def check_train4k_kernels(g) -> tuple:
+    """The masked pair at the train_4k step's six MLP layouts (M 8192, K
+    4096, N 11008, P 0.5, tile128) against its plain version, twice and
+    bit-identical; the wi / wg and wo forwards timed beside the bound, the
+    plain version and ``torch.matmul``.  Returns ({kernel: times},
+    {kernel: worst error})."""
+    worst = {"masked_matmul": 0.0, "masked_matmul_dk": 0.0}
+    times = {}
+    for label, kernel, m, k, n, xl, wl in LS_MLP:
+        fn, plain, x, w, live, dead = _operands(kernel, m, k, n, xl, wl, 0.5,
+                                                torch.float32, g)
+        err, config = _check_call(f"train_4k {label} M={m} K={k} N={n} "
+                                  f"P=0.5", fn, plain, x, w, live, dead,
+                                  BLOCK, torch.float32)
+        if config != "tile128":
+            raise AssertionError(f"train_4k {label} took {config}, not "
+                                 f"tile128")
+        worst[kernel] = max(worst[kernel], err)
+        del x, w, dead
+        if label in ("wi/wg fwd", "wo fwd"):
+            times[kernel] = {"shape": [m, k, n], **_time_call(
+                f"train_4k {label}", kernel, m, k, n, xl, wl, 0.5, g, 1)}
+        _free()
+    return times, worst
+
+
+def long_seq_train(g) -> dict:
+    """train_4k: one Helios ``make_train_step`` step (volume 0.5, block
+    masks) at DeepSeek-7B width, ``LS_LAYERS`` layers, batch 2 x 4096 held
+    kernel path against plain path at 1e-4, with the attention on the
+    chunked lowering (no flash launch) and the masked pair at M 8192 (6 /
+    3 a layer); a warm kernel-path step and the peak."""
+    from repro_torch.configs import DEEPSEEK_7B
+    from repro_torch.launch import steps as S
+    from repro_torch.models import layers as L
+    from repro_torch.models.module import tree_leaves
+    cfg = dataclasses.replace(DEEPSEEK_7B, num_layers=LS_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    hcfg, tcfg, state, batch = _launch_setting(cfg, LS_TRAIN_BATCH,
+                                               LS_TRAIN_SEQ, g)
+    n_params = sum(v.numel() for v in tree_leaves(state["params"]))
+    calls, real = [], L.chunked_attention
+    L.chunked_attention = lambda *a, **kw: calls.append(a[0].shape[1]) or \
+        real(*a, **kw)
+    try:
+        out = _hold_step(cfg, hcfg, tcfg, state, batch, host=True,
+                         want={**_expect(LS_LAYERS, 1),
+                               "flash_attention": 0})
+    finally:
+        L.chunked_attention = real
+    if calls != [LS_TRAIN_SEQ] * (2 * LS_LAYERS):
+        raise AssertionError(f"train_4k: chunked_attention calls {calls}, "
+                             f"want {LS_LAYERS} a path at {LS_TRAIN_SEQ}")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    step = S.make_train_step(cfg, hcfg, tcfg, _rt("cuda"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    new, met = step(state, batch)
+    torch.cuda.synchronize()
+    out["warm_step_s"] = time.perf_counter() - t0
+    out.update(params_b=n_params / 1e9, tokens=LS_TOKENS)
+    log(f"train_4k {cfg.name} ({LS_LAYERS} of {DEEPSEEK_7B.num_layers} "
+        f"layers, {out['params_b']:.4f} B params), batch {LS_TRAIN_BATCH} x "
+        f"{LS_TRAIN_SEQ}: held step's peak {out['peak_gib']:.2f} GiB, a warm "
+        f"kernel-path step {out['warm_step_s']:.3f} s, loss "
+        f"{float(met['loss']):.6f}")
+    del state, batch, new, met
+    _free()
+    return out
+
+
+def long_seq_serve() -> dict:
+    """prefill_32k / decode_32k at DeepSeek-7B width, ``LS_LAYERS`` layers,
+    batch 1: a prefill of ``LS_PREFILL`` tokens (its attention on the
+    chunked lowering), timed; a prefill ``LS_DECODE`` tokens shorter, its
+    cache padded to ``LS_PREFILL``, then ``LS_DECODE`` teacher-forced
+    decode steps, timed; the last step's logits held against the long
+    prefill's at max(1e-4, twice a 2^-23-nudged twin's drift), the twin
+    run only where the difference passes 1e-4."""
+    from repro_torch.configs import DEEPSEEK_7B
+    from repro_torch.data.synthetic import markov_tokens
+    from repro_torch.launch import serve as SV
+    from repro_torch.models import init_params
+    from repro_torch.models import layers as L
+    cfg = dataclasses.replace(DEEPSEEK_7B, num_layers=LS_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, "cuda")
+    toks = torch.as_tensor(markov_tokens(1, LS_PREFILL, cfg.vocab_size),
+                           device="cuda")
+    srv = SV.GenerationServer(cfg, 1, LS_PREFILL, gen=LS_DECODE,
+                              kernels="cuda")
+    calls, real = [], L.chunked_attention
+    L.chunked_attention = lambda *a, **kw: calls.append(a[0].shape[1]) or \
+        real(*a, **kw)
+    try:
+        _reset_all()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full, cache = srv.prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        cache_gb = sum(v.numel() * v.element_size()
+                       for c in cache["kv"] for v in c.values()) / 1e9
+        del cache
+        short = LS_PREFILL - LS_DECODE
+        _, cache = srv.prefill(params, {"tokens": toks[:, :short]})
+        cache = SV.pad_cache(cache, LS_PREFILL)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(short, LS_PREFILL):
+            logits, cache = srv.decode(params, toks[:, i:i + 1], cache)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / LS_DECODE
+        del cache
+    finally:
+        L.chunked_attention = real
+    launches = _all_launches()
+    if calls != [LS_PREFILL] * LS_LAYERS + [short] * LS_LAYERS or \
+            any(launches.values()):
+        raise AssertionError(f"prefill_32k: chunked_attention calls {calls}"
+                             f", launches {launches}")
+    consistency = _max_diff(logits, full)
+    drift = None
+    if consistency > F32_TOL:
+        # the twin only widens the gate past 1e-4, so it runs only there
+        _nudge(params, 1.0 + 2.0 ** -23)
+        drift = _max_diff(srv.prefill(params, {"tokens": toks})[0], full)
+    gate = max(F32_TOL, 2 * (drift or 0.0))
+    out = {"prefill_ms": prefill_s * 1e3, "decode_ms": decode_ms,
+           "consistency": consistency, "drift": drift, "gate": gate,
+           "cache_gb": cache_gb,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"prefill_32k {cfg.name} ({LS_LAYERS} layers), 1 x {LS_PREFILL}: "
+        f"prefill {out['prefill_ms']:.3f} ms, KV cache {cache_gb:.3f} GB; "
+        f"decode_32k: {LS_DECODE} teacher-forced steps from a {short}-token "
+        f"prefill, {decode_ms:.4f} ms a step; the last step's logits "
+        f"against the {LS_PREFILL}-token prefill {consistency:.3e}, gate "
+        f"{gate:.3e} (the prefill's drift under a 2^-23 nudge: {drift}); "
+        f"peak {out['peak_gib']:.2f} GiB; {card_line()}")
+    if not (consistency <= gate and bool(torch.isfinite(full).all())
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"decode_32k disagrees with prefill_32k: "
+                             f"{consistency} > {gate}")
+    del params, srv, full, logits
+    _free()
+    return out
+
+
+def long_phase(kernels: list) -> None:
+    """Phase 4q; appends the Granite cohort's flash row and the train_4k
+    masked rows to ``kernels`` and adds the phase's launches to the
+    kernels' own rows."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(71)
+    err = _check_flash_case(*GR_COHORT_FLASH, torch.float32, g)
+    t, bd, flops = _flash_times(*GR_COHORT_FLASH, seed=73)
+    _flash_line(GR_COHORT_FLASH, t, bd, flops, GR_LAYERS * COHORTS)
+    rows = [{"name": "flash_attention_granite_cohort", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:70",
+             "shape": list(GR_COHORT_FLASH[:4]), "launches": 0,
+             "max_abs_err": err, **t, "bound_ms": bd["bound_ms"],
+             "bound_by": bd["bound_by"], "bound_f32_ms": bd["bound_f32_ms"]}]
+    times, worst = check_train4k_kernels(g)
+    for name in ("masked_matmul", "masked_matmul_dk"):
+        rows.append({"name": f"{name}_train4k", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/masked_matmul.cu",
+                     "replaces": "src/repro/kernels/masked_matmul.py:"
+                                 + ("87" if name == "masked_matmul" else
+                                    "103"),
+                     "launches": 0, "max_abs_err": worst[name],
+                     **times[name]})
+    _reset_all()
+    t1 = time.perf_counter()
+    gr = granite_cohort_path()
+    _free()
+    t2 = time.perf_counter()
+    xl = xlstm_cohort_path()
+    _free()
+    t3 = time.perf_counter()
+    train = long_seq_train(g)
+    serve = long_seq_serve()
+    log(f"phase 4q: kernel checks and times {t1 - t0:.1f} s, Granite "
+        f"{t2 - t1:.1f} s, xLSTM {t3 - t2:.1f} s, long sequences "
+        f"{time.perf_counter() - t3:.1f} s")
+    # the row's shape is the batched engine's cohort of 2; the buckets and
+    # the population engine's block of 4 fold other batch sizes, and count
+    # on flash's own row
+    flash = gr["launches"]["flash_attention"] \
+        + gr["async_launches"]["flash_attention"] \
+        + gr["sharded_launches"]["flash_attention"]
+    by_row = {"flash_attention_granite_cohort":
+                  gr["launches"]["flash_attention"],
+              "masked_matmul_train4k": train["launches"]["masked_matmul"],
+              "masked_matmul_dk_train4k":
+                  train["launches"]["masked_matmul_dk"]}
+    if min(by_row.values()) <= 0:
+        raise AssertionError(f"a kernel never launched on phase 4q's paths: "
+                             f"{by_row}")
+    for row in rows:
+        row["launches"] = by_row[row["name"]]
+    kernels += rows
+    _add_launches(kernels, "granite_cohort", {"flash_attention": flash})
+    _add_launches(kernels, "train_4k",
+                  {k: train["launches"][k]
+                   for k in ("masked_matmul", "masked_matmul_dk")})
+    log("phase 4q summary " + json.dumps(
+        {"granite": gr, "xlstm": xl, "train_4k": train, "serve_32k": serve},
+        default=lambda v: round(v, 6) if isinstance(v, float) else str(v)))
+    log(f"phase 4q took {time.perf_counter() - t0:.1f} s")
+
+
 def _device_us(e) -> float:
     """Self device time of a profiler row (the attribute was renamed)."""
     t = getattr(e, "self_device_time_total", None)
@@ -5689,6 +6307,10 @@ def main() -> int:
     mark("phase 4o")
 
     population_phase(kernels)
+    _free()
+    mark("phase 4p")
+
+    long_phase(kernels)
 
     log(f"chip_smoke.py ran {time.perf_counter() - start:.1f} s")
     log(json.dumps({"kernels": kernels}))

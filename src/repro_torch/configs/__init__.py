@@ -2,7 +2,8 @@
 LM configs (the dense LMs: DeepSeek and the three QKV-bias Qwen configs;
 the MoE LMs Granite and DeepSeek-V2 with its latent attention; the
 hybrid, xLSTM, the VLM and the SeamlessM4T encoder-decoder), their
-reduced test sizes, and the name lookup the CLIs use."""
+reduced test sizes, the name lookup the CLIs use, and the input-shape
+suite (``SHAPES``, ``applicable``, ``cells``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,8 +13,10 @@ from repro_torch.configs import (codeqwen1_5_7b, deepseek_7b,
                                  internvl2_1b, qwen1_5_32b, qwen2_5_32b,
                                  seamless_m4t_large_v2, xlstm_125m,
                                  zamba2_1_2b)
-from repro_torch.configs.base import HeliosConfig, ModelConfig, TrainConfig
+from repro_torch.configs.base import (HeliosConfig, ModelConfig,
+                                      ShapeConfig, TrainConfig)
 from repro_torch.configs.paper_cnns import ALEXNET, CNNS, LENET, RESNET18
+from repro_torch.configs.shapes import SHAPES, applicable, cells
 
 SEAMLESS_M4T_LARGE_V2 = seamless_m4t_large_v2.CONFIG
 DEEPSEEK_V2_236B = deepseek_v2_236b.CONFIG
@@ -40,6 +43,10 @@ def get_model_config(name: str) -> ModelConfig:
     except KeyError:
         raise KeyError(f"unknown arch {name!r}; the port has "
                        f"{sorted(ALL_MODELS)}") from None
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
 
 
 def reduced(cfg: ModelConfig) -> ModelConfig:
@@ -87,8 +94,13 @@ def reduced(cfg: ModelConfig) -> ModelConfig:
     return dataclasses.replace(cfg, **upd)
 
 
+#: the shape of the reference's smoke runs
+SMOKE_SHAPE = ShapeConfig("smoke", "train", seq_len=64, global_batch=2)
+
 __all__ = ["ALEXNET", "ALL_MODELS", "ARCHS", "CNNS", "CODEQWEN1_5_7B",
            "DEEPSEEK_7B", "DEEPSEEK_V2_236B", "GRANITE_MOE_1B_A400M",
            "INTERNVL2_1B", "LENET", "QWEN1_5_32B", "QWEN2_5_32B", "RESNET18",
-           "SEAMLESS_M4T_LARGE_V2", "XLSTM_125M", "ZAMBA2_1_2B", "HeliosConfig", "ModelConfig", "TrainConfig",
-           "get_model_config", "reduced"]
+           "SEAMLESS_M4T_LARGE_V2", "SHAPES", "SMOKE_SHAPE", "XLSTM_125M",
+           "ZAMBA2_1_2B", "HeliosConfig", "ModelConfig", "ShapeConfig",
+           "TrainConfig", "applicable", "cells", "get_model_config",
+           "get_shape", "reduced"]

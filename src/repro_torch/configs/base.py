@@ -6,6 +6,8 @@
   shared-attention hybrid, the xLSTM stack, the VLM (a dense LM behind a
   stub image prefix) or the encoder-decoder (SeamlessM4T's backbone
   behind a stub audio frontend).
+* :class:`ShapeConfig` — one cell of the input-shape suite
+  (``configs/shapes.py``): train, prefill or decode at a length and batch.
 * :class:`HeliosConfig` — the paper's soft-training knobs (Sections IV-VI).
 * :class:`TrainConfig`  — the training launch's optimizer, precision and
   microbatching.
@@ -100,8 +102,29 @@ class ModelConfig:
         return _round_up(self.vocab_size, 128)
 
     @property
+    def is_subquadratic(self) -> bool:
+        """True when decode at 500k context is feasible (SSM / hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
+    @property
     def is_encdec(self) -> bool:
         return self.family == "encdec"
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One workload cell: (kind, seq_len, global_batch)."""
+
+    name: str
+    kind: str                  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def tokens_per_step(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch          # one new token per sequence
+        return self.global_batch * self.seq_len
 
 
 @dataclasses.dataclass(frozen=True)

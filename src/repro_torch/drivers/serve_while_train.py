@@ -6,9 +6,9 @@ The port's twin of ``examples/serve_while_train.py``, in one process:
 * an ``FLRun`` trains a token LM on Non-IID Markov-topic streams and
   publishes the global params every ``publish_every`` rounds
   (``publish_dir`` -> atomic ``checkpoint.save``: tmp write, fsync,
-  ``os.replace``).  The reference trains a ``BatchedFLRun``, which the
-  port runs on the CNN testbed only (ROADMAP item 19); the publish seam
-  is the same on every engine that runs ``run_sync``;
+  ``os.replace``).  The reference trains a ``BatchedFLRun``; this driver
+  keeps ``FLRun``, and the publish seam is the same on every engine that
+  runs ``run_sync``;
 * a ``ServeLoop`` on the calling thread serves batched greedy generation
   (``GenerationServer``) and polls the publish directory between
   requests behind an eval-gated promotion rule (held-out CE within

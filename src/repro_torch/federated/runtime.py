@@ -27,13 +27,13 @@ and overrides its hooks (``_train_cohort``, ``_write_volumes``,
 
 * :class:`FLRun` — the sequential reference: one local training per
   client, one event at a time in ``run_async``.
-* :class:`AsyncFLRun` — the bucketed async engine (asyn / afo; the CNN
-  testbed, the dense LM and the Mamba2 hybrid): a bucket of equal-time completions trains under one
-  ``torch.func.vmap`` from the rows of a device-side snapshot ring and is
-  mixed in event order.  Same seed, same global-param trajectory as
+* :class:`AsyncFLRun` — the bucketed async engine (asyn / afo; every
+  family ``FLRun`` federates): a bucket of equal-time completions trains
+  under one ``torch.func.vmap`` from the rows of a device-side snapshot
+  ring and is mixed in event order.  Same seed, same global-param trajectory as
   ``FLRun.run_async`` up to rounding.
-* :class:`BatchedFLRun` — the batched sync engine (the families of
-  :data:`BATCHED_FAMILIES`): a round runs the soft-training stragglers and
+* :class:`BatchedFLRun` — the batched sync engine (every family
+  ``FLRun`` federates): a round runs the soft-training stragglers and
   the capable clients as two cohorts, each local step of a cohort one
   vmapped step whose masked products, flash attention and ``ssd_diag``
   calls are one kernel launch each for the whole cohort.  Inherits the
@@ -93,12 +93,6 @@ from repro_torch.optim import compression as CP
 #: most events a bucket of the async engine trains at once: bounds the
 #: memory of the vmapped local training
 MAX_BUCKET = 128
-
-#: model families the batched and bucketed engines run: the CNN testbed,
-#: the dense LM and the Mamba2 hybrid (their kernels fold a cohort into
-#: one launch under ``torch.func.vmap``)
-BATCHED_FAMILIES = ("cnn", "dense", "hybrid")
-
 
 def _make_local_train(adapter: FamilyAdapter, opt):
     """E masked local SGD steps (a Python loop over the leading
@@ -837,8 +831,8 @@ class FLRun:
 
 
 class AsyncFLRun(FLRun):
-    """Bucketed event engine for the async schemes (asyn / afo) on the
-    families of :data:`BATCHED_FAMILIES`.
+    """Bucketed event engine for the async schemes (asyn / afo) on every
+    family ``FLRun`` federates (the CNN testbed and the token LMs).
 
     The event semantics are ``FLRun.run_async``'s, executed in bulk:
 
@@ -867,12 +861,6 @@ class AsyncFLRun(FLRun):
 
     def __post_init__(self):
         super().__post_init__()
-        if self.cfg.family not in BATCHED_FAMILIES:
-            raise NotImplementedError(
-                f"{type(self).__name__} runs the families "
-                f"{BATCHED_FAMILIES}, not the {self.cfg.family!r} family: "
-                "the moe family needs a vmapped expert dispatch, the ssm "
-                "family (xLSTM) a vmapped scan (ROADMAP.md item 19)")
         #: one tensor per key for the whole run, so the kernels' live tables
         #: of a capable cohort are built once
         self._ones = ST.full_masks(self.adapter.schema, self.device)

@@ -36,7 +36,11 @@ a snapshot, so ``python -m repro_torch.obs report``
 shows the serving plane beside the training rounds.
 
   python -m repro_torch.launch.serve --arch xlstm-125m --reduced \\
-      --batch 8 --prompt-len 64 --gen 32 [--ckpt-dir DIR] [--device cpu]
+      --batch 8 --prompt-len 64 --gen 32 [--layers N] [--ckpt-dir DIR] \\
+      [--device cpu]
+
+``--layers N`` serves the config at its widths with its depth cut to N
+layers.
 """
 from __future__ import annotations
 
@@ -441,6 +445,9 @@ def main(argv=None, report: Optional[dict] = None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--arch", default="xlstm-125m")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (default: the "
+                         "config's)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
@@ -458,6 +465,8 @@ def main(argv=None, report: Optional[dict] = None):
     cfg = get_model_config(args.arch)
     if args.reduced:
         cfg = reduced(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     dev = resolve_device(args.device)
     srv = GenerationServer(cfg, args.batch, args.prompt_len, gen=args.gen,
                            kernels=args.kernels, device=dev)

@@ -139,12 +139,75 @@ def dense_attention(q, k, v, *, causal: bool, q_offset: int = 0,
     return torch.einsum("bhqs,bshk->bqhk", probs, v)
 
 
+def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512,
+                      kv_chunk: int = 1024):
+    """Online-softmax attention in plain tensor ops, the reference's
+    schedule: a loop over query chunks, each a loop over KV chunks keeping
+    a running max, denominator and f32 accumulator, so no (Sq, Sk) score
+    matrix is formed.  q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd), repeated
+    to the query heads first.
+
+    The chunk sizes are the reference's: ``n = S // chunk`` chunks of
+    ``S // n``, so a length that is not ``n`` times that raises, where the
+    reference's reshape does (32760 does; every multiple of 1024 works).
+    Autograd keeps each block's scores, as the reference's scan keeps its
+    residuals."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    groups = h // k.shape[2]
+    k = _repeat_kv(k, groups)
+    v = _repeat_kv(v, groups)
+    scale = hd ** -0.5
+    n_q = max(1, sq // q_chunk)
+    q_chunk = sq // n_q
+    n_kv = max(1, sk // kv_chunk)
+    kv_chunk = sk // n_kv
+    if n_q * q_chunk != sq or n_kv * kv_chunk != sk:
+        raise ValueError(
+            f"chunked_attention splits {sq} queries into {n_q} chunks of "
+            f"{q_chunk} and {sk} keys into {n_kv} of {kv_chunk}, which do "
+            f"not cover them (the reference's reshape fails here too)")
+    qr = q.reshape(b, n_q, q_chunk, h, hd)
+    kr = k.reshape(b, n_kv, kv_chunk, h, hd)
+    vr = v.reshape(b, n_kv, kv_chunk, h, hd)
+    dev = q.device
+    neg = torch.full((), -1e30, device=dev)
+    outs = []
+    for qi in range(n_q):
+        qblk = qr[:, qi]
+        acc = torch.zeros((b, q_chunk, h, hd), dtype=torch.float32,
+                          device=dev)
+        m = torch.full((b, h, q_chunk), -1e30, device=dev)
+        denom = torch.zeros((b, h, q_chunk), device=dev)
+        for ki in range(n_kv):
+            kblk, vblk = kr[:, ki], vr[:, ki]
+            logits = torch.einsum("bqhk,bshk->bhqs", qblk.float(),
+                                  kblk.float()) * scale
+            if causal:
+                qpos = qi * q_chunk + torch.arange(q_chunk, device=dev)
+                kpos = ki * kv_chunk + torch.arange(kv_chunk, device=dev)
+                mask = qpos[:, None] >= kpos[None, :]
+                logits = torch.where(mask[None, None], logits, neg)
+            new_m = torch.maximum(m, logits.amax(dim=-1))         # (b,h,q)
+            correction = torch.exp(m - new_m)
+            p = torch.exp(logits - new_m[..., None])              # (b,h,q,s)
+            denom = denom * correction + p.sum(dim=-1)
+            pv = torch.einsum("bhqs,bshk->bqhk", p.to(vblk.dtype), vblk)
+            acc = acc * correction.transpose(1, 2)[..., None] + pv
+            m = new_m
+        out = acc / torch.clamp(denom, min=1e-30).transpose(1, 2)[..., None]
+        outs.append(out.to(q.dtype))
+    return torch.stack(outs, dim=1).reshape(b, sq, h, hd)
+
+
 def attend(q, k, v, *, causal: bool, impl: str = "auto"):
     """Dispatch: ``impl="cuda"`` (alias ``"pallas"``) runs full-sequence
     causal self-attention shorter than :data:`CHUNKED_FROM` on the flash
-    kernel (recompute backward); anything else takes ``"auto"``: dense
-    attention, or the chunked lowering for long sequences, which the port
-    does not have yet."""
+    kernel (recompute backward); anything else takes ``"auto"``: the
+    chunked lowering where queries and keys are as long and at least
+    :data:`CHUNKED_FROM` (under ``"cuda"`` too, as in the reference: the
+    flash kernel's recompute backward would form the scores it avoids),
+    dense attention otherwise."""
     if impl in ("pallas", ops.CUDA):
         if causal and q.shape[1] == k.shape[1] and q.shape[1] < CHUNKED_FROM:
             groups = q.shape[2] // k.shape[2]
@@ -159,9 +222,7 @@ def attend(q, k, v, *, causal: bool, impl: str = "auto"):
         impl = "chunked" if (q.shape[1] >= CHUNKED_FROM
                              and q.shape[1] == k.shape[1]) else "dense"
     if impl == "chunked":
-        raise NotImplementedError(
-            "chunked_attention (sequences of 4096 and more) is not ported "
-            "yet; see ROADMAP.md, modules to port, item 9")
+        return chunked_attention(q, k, v, causal=causal)
     return dense_attention(q, k, v, causal=causal)
 
 

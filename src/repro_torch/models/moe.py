@@ -91,8 +91,10 @@ def _grouped_ffn(params, x2d, w, idx, cfg, capacity_factor):
     order = torch.argsort(flat_e, stable=True)
     se, st, sw = flat_e[order], flat_t[order], flat_w[order]
 
-    counts = torch.zeros(e, dtype=se.dtype, device=dev).index_add_(
-        0, se, torch.ones_like(se))
+    # expert counts out of place: torch.func.vmap (the batched engines)
+    # refuses an in-place add of a client-batched index into a tensor made
+    # here, and one_hot checks its data on the host
+    counts = (se[:, None] == torch.arange(e, device=dev)).sum(0)
     start = torch.cumsum(counts, 0) - counts                 # exclusive
     pos = torch.arange(t * k, device=dev) - start[se]
     slot = torch.where(pos < cap, se * cap + pos,
@@ -121,9 +123,12 @@ def _dense_ffn(params, x2d, w, idx, cfg):
     act = F.silu(torch.einsum("td,edf->tef", x2d, params["wg"]))
     hid = act * torch.einsum("td,edf->tef", x2d, params["wi"])
     y = torch.einsum("tef,efd->ted", hid, params["wo"])      # (T, E, d)
+    experts = torch.arange(e, device=x2d.device)
     comb = x2d.new_zeros((x2d.shape[0], e))
     for j in range(k):                                       # k is small
-        comb = comb + F.one_hot(idx[:, j], e).to(x2d.dtype) * w[:, j:j + 1]
+        # one_hot, formed so vmap can batch it
+        comb = comb + (idx[:, j:j + 1] == experts).to(x2d.dtype) \
+            * w[:, j:j + 1]
     return torch.einsum("ted,te->td", y, comb)
 
 

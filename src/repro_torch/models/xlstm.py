@@ -257,19 +257,25 @@ def slstm_spec(cfg):
 def slstm_scan(params, xg, state, head_mask=None):
     """xg: gate -> (B, S, nh, hd) input pre-activations; state: (c, n, m,
     h), each (B, nh, hd).  The exponential-gated scalar cell, one time step
-    at a time.  Returns (hs (B, S, nh, hd), final state)."""
+    at a time.  Returns (hs (B, S, nh, hd), final state).
+
+    The loop is launch-bound on a GPU, so the four gates' recurrent
+    products are one einsum a step over the gates' concatenated weights,
+    and each gate's bias joins its input pre-activations once, before the
+    loop (the reference sums input, recurrence and bias a step and a gate
+    at a time; the sums differ by rounding)."""
     f32 = torch.float32
     c, n, m, h = state
+    hd = h.shape[-1]
+    rec_w = torch.cat([params[f"r{g}"] for g in _GATES], dim=-1)
+    pre_in = torch.cat([xg[g].to(f32) + params[f"b{g}"].to(f32)
+                        for g in _GATES], dim=-1)          # (B, S, nh, 4hd)
     hs = []
-    for t in range(xg["z"].shape[1]):
-        def gate(g):
-            rec = torch.einsum("bhk,hkl->bhl", h, params[f"r{g}"])
-            return xg[g][:, t].to(f32) + rec + params[f"b{g}"].to(f32)
-
-        zt = torch.tanh(gate("z"))
-        it = gate("i")
-        ft = gate("f")
-        ot = torch.sigmoid(gate("o"))
+    for t in range(pre_in.shape[1]):
+        pre = pre_in[:, t] + torch.einsum("bhk,hkl->bhl", h, rec_w)
+        z, it, ft, o = pre.split(hd, dim=-1)
+        zt = torch.tanh(z)
+        ot = torch.sigmoid(o)
         m_new = torch.maximum(ft + m, it)
         ip = torch.exp(it - m_new)
         fp = torch.exp(ft + m - m_new)

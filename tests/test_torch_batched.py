@@ -26,8 +26,8 @@ run the client-axis wrappers' plain bodies on the CPU.
   plain products), with a shared weight and a shared mask;
   ``stack_states`` round trip; ``RingAllocator`` and ``aggregate_stacked``
   against the JAX package's.
-* the MoE and xLSTM families raise under ``BatchedFLRun`` and
-  ``AsyncFLRun``; the dense LM and the hybrid build.
+* the dense LM, the hybrid, the MoE LM and xLSTM build on
+  ``BatchedFLRun`` and ``AsyncFLRun``.
 """
 import os
 
@@ -237,24 +237,12 @@ def test_bucket_engine_tracks_the_sequential_loop(async_runs):
                                    rtol=0, atol=ATOL, err_msg=k)
 
 
-def test_lm_family_raises():
-    """The token-LM families still waiting for the batched engines (MoE's
-    vmapped expert dispatch, xLSTM's scan) raise, naming the roadmap item."""
-    h = TC.HeliosConfig()
-    tokens = np.zeros((8, 33), np.int32)
-    for cfg in (TC.reduced(TC.XLSTM_125M),
-                TC.reduced(TC.GRANITE_MOE_1B_A400M)):
-        for cls in (BatchedFLRun, AsyncFLRun):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP.md item 19"):
-                cls(cfg, h, "helios", [], {"tokens": tokens},
-                    {"tokens": tokens}, device="cpu")
-
-
-@pytest.mark.parametrize("arch", ["deepseek-7b", "zamba2-1.2b"])
+@pytest.mark.parametrize("arch", ["deepseek-7b", "zamba2-1.2b",
+                                  "granite-moe-1b-a400m", "xlstm-125m"])
 def test_lm_families_accepted(arch):
-    """The dense LM and the Mamba2 hybrid build on both engines
-    (``tests/test_torch_batched_lm.py`` holds their runs against JAX)."""
+    """The dense LM, the Mamba2 hybrid, the MoE LM and xLSTM build on both
+    engines (``tests/test_torch_batched_lm.py``, ``_hybrid.py``,
+    ``_moe.py`` and ``_xlstm.py`` hold their runs against JAX)."""
     cfg = TC.reduced(TC.ARCHS[arch])
     tokens = np.zeros((8, 33), np.int32)
     for cls in (BatchedFLRun, AsyncFLRun):

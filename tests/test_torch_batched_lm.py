@@ -72,11 +72,17 @@ GRAD_TOL = 1e-4
 #: lr 0.5)
 CE_TOL = 1e-4
 RUN_KW = dict(local_steps=2, batch_size=4, lr=0.05, seed=0, eval_batch=48)
-#: arch -> (JAX config, port config, token stream length)
+#: arch -> (JAX config, port config, token stream length); the MoE and
+#: xLSTM cases run in tests/test_torch_batched_moe.py and
+#: test_torch_batched_xlstm.py
 ARCHS = {"deepseek": (JC.reduced(JC.ARCHS["deepseek-7b"]),
                       TC.reduced(TC.DEEPSEEK_7B), 32),
          "zamba2": (JC.reduced(JC.ARCHS["zamba2-1.2b"]),
-                    TC.reduced(TC.ZAMBA2_1_2B), 64)}
+                    TC.reduced(TC.ZAMBA2_1_2B), 64),
+         "granite": (JC.reduced(JC.ARCHS["granite-moe-1b-a400m"]),
+                     TC.reduced(TC.GRANITE_MOE_1B_A400M), 32),
+         "xlstm": (JC.reduced(JC.ARCHS["xlstm-125m"]),
+                   TC.reduced(TC.XLSTM_125M), 32)}
 #: case -> (arch, scheme, HeliosConfig overrides)
 #: (the hybrid's cases run in tests/test_torch_batched_hybrid.py, so two
 #: test workers share the JAX side's compiles)

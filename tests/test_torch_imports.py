@@ -107,6 +107,10 @@ def test_port_imports_with_jax_blocked():
         "from repro_torch.configs import (DEEPSEEK_V2_236B, "
         "SEAMLESS_M4T_LARGE_V2, ARCHS)\n"
         "assert len(ARCHS) == 10\n"
+        "from repro_torch.configs import SHAPES, cells, get_shape\n"
+        "import repro_torch.configs.shapes\n"
+        "from repro_torch.models.layers import chunked_attention\n"
+        "assert len(cells(ARCHS)) == 40 and get_shape('train_4k')\n"
         "for c in (DEEPSEEK_V2_236B, SEAMLESS_M4T_LARGE_V2):\n"
         "    api = build(reduced(c))\n"
         "    assert api.mask_schema and api.prefill_fn and api.decode_fn\n"

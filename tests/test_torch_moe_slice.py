@@ -393,16 +393,6 @@ def test_mla_and_vlm_refused():
         make_adapter(vlm, "cuda", 16, torch.device("cpu"))
 
 
-def test_batched_engines_refuse_moe():
-    """The batched and bucketed async engines run the CNN testbed only."""
-    from repro_torch.federated import AsyncFLRun, BatchedFLRun
-    tokens = np.zeros((8, 33), np.int32)
-    for cls in (BatchedFLRun, AsyncFLRun):
-        with pytest.raises(NotImplementedError, match="moe family"):
-            cls(CFGS["granite"][1], TC.HeliosConfig(), "helios", [],
-                {"tokens": tokens}, {"tokens": tokens}, device="cpu")
-
-
 def test_unstack_gradients_match_layer_indexing():
     """``module.unstack`` (one ``unbind`` a leaf) gives the same layers and
     bit-identical stacked gradients as indexing each layer."""

@@ -564,6 +564,23 @@ def test_cli_gen_one_prefill_only(capsys):
     assert "prefill-only" in out and "tok/s" not in out.split("skipped")[0]
 
 
+def test_cli_layers_cuts_the_depth():
+    """--layers serves the config at its widths with fewer layers: the
+    params and the tokens are those of the cut config's server."""
+    report = {}
+    toks = SV.main(["--arch", "zamba2-1.2b", "--reduced", "--layers", "1",
+                    "--batch", "2", "--prompt-len", "8", "--gen", "3",
+                    "--device", "cpu"], report=report)
+    full = TC.reduced(TC.ZAMBA2_1_2B)
+    cfg = report["cfg"]
+    assert cfg.num_layers == 1 < full.num_layers
+    assert dataclasses.replace(cfg, num_layers=full.num_layers) == full
+    assert toks.shape == (2, 3)
+    srv = SV.GenerationServer(cfg, 2, 8, gen=3, device="cpu")
+    np.testing.assert_array_equal(
+        toks.numpy(), srv(report["params"], report["batch"]).numpy())
+
+
 def test_cli_serves_a_snapshot_jax_wrote(jax_ref, tmp_path, capsys):
     """--ckpt-dir restores a snapshot the JAX package published; the tokens
     are the port server's on those params."""

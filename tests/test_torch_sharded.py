@@ -23,9 +23,9 @@ Eq. 2 numbers through the JAX key-path backend.
   and rows against JAX's.
 * ``init_population`` rows equal ``init_state``'s, key paths included;
   gather / scatter round trips in place; a foreign key path is refused.
-* the MoE family is refused with the batched engines' message; the
-  ``population_scale`` driver runs on the CPU at reduced LeNet and draws
-  the JAX engine's cohorts.
+* the ``population_scale`` driver runs on the CPU at reduced LeNet and
+  draws the JAX engine's cohorts (the MoE LM on this engine:
+  ``tests/test_torch_batched_moe.py``).
 """
 import contextlib
 import io
@@ -295,17 +295,6 @@ def test_population_rows_equal_init_state():
     with pytest.raises(ValueError, match="key path"):
         tST.key_row(KY.key(3).split()[1])
     assert tST.population_nbytes(pop) == 3 * (12 * 212 + 4 + 8 + 16)
-
-
-def test_moe_family_is_refused():
-    cfg = TC.reduced(TC.ARCHS["granite-moe-1b-a400m"])
-    hcfg = TC.HeliosConfig()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 19"):
-        ShardedFLRun(cfg, hcfg, "helios",
-                     setup_clients(make_fleet(1, 1), [np.arange(8)] * 2,
-                                   hcfg, device="cpu"),
-                     {"tokens": np.zeros((8, 16), np.int32)},
-                     {"tokens": np.zeros((2, 16), np.int32)}, device="cpu")
 
 
 def test_population_scale_driver_on_the_cpu():
